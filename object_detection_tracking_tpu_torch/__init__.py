@@ -4,8 +4,9 @@
 The JAX package beside it is the reference: every module here mirrors a
 module there by path and name, and the tests hold each one against its JAX
 counterpart on the CPU. This package imports torch, numpy and scipy, and
-never jax; of the JAX package it uses only the JAX-free ``config`` and
-``class_ids`` modules.
+never jax, and nothing of the JAX package: it keeps its own copies of the
+JAX-free pieces it needs (``config``, ``class_ids``, ``utils/masks``,
+``utils/viz``, ``csrc/lapjv.cpp``).
 
 Layout:
   params.py       JAX param pytree <-> the port's nn.Modules; JAX-free init

@@ -28,9 +28,8 @@ import time
 import numpy as np
 import torch
 
-from object_detection_tracking_tpu.class_ids import coco_obj_to_actev_obj
-from object_detection_tracking_tpu.config import DetectorConfig
-
+from ..class_ids import coco_obj_to_actev_obj, targetAct2id
+from ..config import DetectorConfig
 from ..data import VideoEnqueuer, open_video
 from ..models import get_model
 from ..params import init_params, load_npz_tree, params_from_jax
@@ -39,10 +38,11 @@ from ..tracking.deep_sort import (Tracker, create_obj_infos, det_level_nms,
                                   filter_short_objs, linear_inter_bbox,
                                   link_tracklets)
 from ..tracking.deep_sort.nn_matching import NearestNeighborDistanceMetric
+from ..utils.masks import fill_full_mask, rle_encode
 
 # flags of parts not ported yet -> ROADMAP item that ports them
 _NOT_PORTED = {
-    "is_efficientdet": "A10", "add_mask": "A8", "use_deformable": "A8",
+    "is_efficientdet": "A10", "use_deformable": "A8",
     "use_gn": "A8", "add_relation_nn": "A8", "use_att_frcnn_head": "A8",
     "use_conv_frcnn_head": "A8", "use_lijun_video_loader": "A12",
     "log_time_and_gpu": "A12",
@@ -102,7 +102,8 @@ def get_args(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda | cuda:N | cpu (no silent CPU fallback)")
     parser.add_argument("--add_mask", action="store_true",
-                        help="Mask-RCNN head (not ported yet)")
+                        help="Mask-RCNN head: per-detection RLE "
+                        "segmentation in the frame json")
     parser.add_argument("--get_box_feat", action="store_true",
                         help="dump per-frame [N,7,7,C] ROI features "
                         "(bf16-rounded) as box_feat_path/<video>/<frame>"
@@ -185,6 +186,7 @@ def build_config(args, device: torch.device) -> DetectorConfig:
         max_size=args.max_size,
         result_score_thres=args.threshold_conf,
         compute_dtype=dtype,
+        add_mask=args.add_mask,
         resnet_depth=50 if args.resnet50 else (
             152 if args.resnet152 else (
                 18 if args.resnet18 else (34 if args.resnet34 else 101))),
@@ -201,7 +203,6 @@ def build_config(args, device: torch.device) -> DetectorConfig:
         overrides.pop("num_class", None)
         return DetectorConfig.coco(**overrides)
     if args.actasobj:
-        from object_detection_tracking_tpu.class_ids import targetAct2id
         overrides.update(class_map="activity", num_class=len(targetAct2id))
     return DetectorConfig.from_version(args.version, **overrides)
 
@@ -293,13 +294,16 @@ def process_video(args, cfg, runner, video_path, classid2name,
                                   tentative_buf[obj])
 
             if video_out_path is not None:
+                masks = host_out.get("final_masks")
                 _write_frame_json(args, video_out_path, videoname, cur_frame,
                                   boxes, labels, probs, valid, scale,
-                                  classid2name)
+                                  classid2name,
+                                  masks[bi] if masks is not None else None,
+                                  enq.orig_hw)
 
             if args.visualize and frames is not None:
                 import cv2
-                from object_detection_tracking_tpu.utils.viz import draw_boxes
+                from ..utils.viz import draw_boxes
                 good = valid & (probs >= args.vis_thres)
                 vis_boxes = boxes[good]
                 vis_labels = ["%s_%.2f" % (classid2name.get(int(l), "?"), p)
@@ -350,19 +354,25 @@ def _store_tracks(tracker, cur_frame, rows, tent_buf):
 
 
 def _write_frame_json(args, video_out_path, videoname, cur_frame, boxes,
-                      labels, probs, valid, scale, classid2name):
+                      labels, probs, valid, scale, classid2name, masks=None,
+                      orig_hw=None):
+    """One frame's detections as JSON; with masks [R, 28, 28], each one's
+    COCO RLE pasted into the original frame (JAX CLI :364-390)."""
     pred = []
     for i in np.flatnonzero(valid):
         box = boxes[i] / scale
         x, y = float(box[0]), float(box[1])
         w, h = float(box[2] - box[0]), float(box[3] - box[1])
         cat_id = int(labels[i])
+        rle = None
+        if masks is not None and orig_hw is not None:
+            rle = rle_encode(fill_full_mask(box, masks[i], orig_hw))
         pred.append({
             "category_id": cat_id,
             "cat_name": classid2name.get(cat_id, str(cat_id)),
             "score": float(round(float(probs[i]), 7)),
             "bbox": [round(x, 2), round(y, 2), round(w, 2), round(h, 2)],
-            "segmentation": None,
+            "segmentation": rle,
         })
     if args.use_my_naming:
         name = "%s_F_%08d.json" % (videoname, cur_frame)

@@ -10,6 +10,10 @@ greedy op of ops/nms.py; the RPN top-k is always exact (the JAX config's
 ``rpn_topk_recall`` < 1 selects a TPU-only approximate top-k, which the port
 does not have).
 
+``config.backbone_impl`` keeps the JAX gate too: "pallas" runs the
+stride-1 bottleneck tails through the bottleneck-stage kernel's wrapper
+(models/resnet.py), "xla" the unfused blocks.
+
 ``config.roi_align_impl`` keeps the JAX gate: "pallas" runs the
 hand-written kernel's wrapper (ops/roi_align.py multilevel_roi_align_cuda:
 the CUDA kernel for CUDA tensors, the plain version for CPU tensors), "xla"
@@ -17,7 +21,9 @@ runs the plain exact version on any device.
 
 Outputs per image (R = config.result_per_im): final_boxes [R, 4] x1y1x2y2,
 final_labels [R] int32, final_probs [R], final_valid [R] bool,
-pooled_box_feat [R, 256] and fpn_box_feat [R, 7, 7, 256].
+pooled_box_feat [R, 256] and fpn_box_feat [R, 7, 7, 256]; with
+``config.add_mask``, final_masks [R, 28, 28] (sigmoid of the detection's
+class mask from the Mask R-CNN head over a 14x14 ROIAlign).
 """
 
 from __future__ import annotations
@@ -30,12 +36,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..class_ids import coco_obj_class_to_id
 from ..ops import anchors as anchor_lib
 from ..ops.boxes import clip_boxes, decode_boxes
 from ..ops.nms import nms, sort_desc_stable
 from ..ops.roi_align import multilevel_roi_align, multilevel_roi_align_cuda
 from .fpn import FPN, RPNHead
-from .heads import FastRCNN2FCHead
+from .heads import FastRCNN2FCHead, MaskRCNNUp4ConvHead
 from .resnet import ResNet
 
 # ImageNet BGR mean/std (the host feeds cv2 BGR frames; models.py:340-352)
@@ -62,7 +69,7 @@ class FasterRCNNFPN(nn.Module):
         cfg = config
         self.config = cfg
         self.keep_full_box_feat = keep_full_box_feat
-        for flag, item in (("use_gn", "A8"), ("add_mask", "A8"),
+        for flag, item in (("use_gn", "A8"),
                            ("use_small_object_head", "A8"),
                            ("add_relation_nn", "A8"),
                            ("use_att_frcnn_head", "A8"),
@@ -73,6 +80,8 @@ class FasterRCNNFPN(nn.Module):
                     f"{flag} is not ported yet (ROADMAP {item})")
         if cfg.roi_align_impl not in ("pallas", "xla"):
             raise ValueError(f"unknown roi_align_impl {cfg.roi_align_impl!r}")
+        if cfg.backbone_impl not in ("pallas", "xla"):
+            raise ValueError(f"unknown backbone_impl {cfg.backbone_impl!r}")
         self.c_channels = ((64, 128, 256, 512) if cfg.use_basic_block
                            else (256, 512, 1024, 2048))
         self.resnet = ResNet(
@@ -85,10 +94,12 @@ class FasterRCNNFPN(nn.Module):
         self.fastrcnn = FastRCNN2FCHead(
             cfg.num_class, cfg.fpn_num_channel, 7, cfg.fpn_frcnn_fc_head_dim,
             cfg.use_frcnn_class_agnostic)
+        self.maskrcnn = (MaskRCNNUp4ConvHead(cfg.num_class,
+                                             cfg.fpn_num_channel,
+                                             cfg.mrcnn_head_dim)
+                         if cfg.add_mask else None)
         # partial-class gather indices (models.py:805-829)
         if cfg.partial_classes:
-            from object_detection_tracking_tpu.class_ids import (
-                coco_obj_class_to_id)
             ids = [coco_obj_class_to_id[n] for n in cfg.partial_classes]
             self.register_buffer("partial_label_idx",
                                  torch.tensor([0] + ids), persistent=False)
@@ -346,7 +357,7 @@ class FasterRCNNFPN(nn.Module):
         decoded = clip_boxes(decoded, (h, w))
         probs = torch.softmax(label_out, dim=-1)
 
-        fb, fl, fp, fv, _ = self._predictions(decoded, probs, prop_valid)
+        fb, fl, fp, fv, fci = self._predictions(decoded, probs, prop_valid)
         box_feat = self._roi_align_batched(p23456, fb, 7, valid=fv)
         out = {
             "final_boxes": fb,
@@ -358,4 +369,20 @@ class FasterRCNNFPN(nn.Module):
         }
         if self.keep_full_box_feat:
             out["fpn_box_feat"] = box_feat
+        if self.maskrcnn is not None:
+            out["final_masks"] = self._masks(p23456, fb, fv, fci)
         return out
+
+    def _masks(self, p23456, boxes, valid, class_idx) -> torch.Tensor:
+        """Mask R-CNN branch (JAX faster_rcnn.py:643-655): a 14x14 ROIAlign
+        over the final boxes, the head in the compute dtype, each
+        detection's mask picked by its class index (clipped), sigmoid.
+        Returns [B, R, 28, 28] float32."""
+        b, r = boxes.shape[:2]
+        roi = self._roi_align_batched(p23456, boxes, 14, valid=valid)
+        logits = self.maskrcnn(roi.reshape(b * r, 14, 14, -1).to(
+            self.compute_dtype)).float().reshape(b, r, 28, 28, -1)
+        sel = class_idx.long().clamp(0, logits.shape[-1] - 1)
+        picked = torch.gather(
+            logits, -1, sel[:, :, None, None, None].expand(b, r, 28, 28, 1))
+        return torch.sigmoid(picked[..., 0])

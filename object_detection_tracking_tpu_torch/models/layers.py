@@ -81,6 +81,21 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     return F.max_pool2d(x, window, stride)
 
 
+def deconv2d(p: Conv, x: torch.Tensor, stride: int = 2) -> torch.Tensor:
+    """NCHW transposed conv of the JAX ``deconv2d`` (layers.py:145-153):
+    ``jax.lax.conv_transpose`` with "SAME" padding and
+    ``transpose_kernel=False`` on an HWIO kernel, for a kernel as large as
+    the stride (the mask head's 2x2/2). That op correlates the
+    stride-dilated input with the kernel unflipped, so output pixel
+    s*i + d takes tap s-1-d of input pixel i: as ``F.conv_transpose2d``
+    it is the spatially flipped kernel with in and out swapped."""
+    if p.weight.shape[-1] != stride:
+        raise NotImplementedError("deconv2d takes kernel size == stride")
+    w = p.weight.flip(2, 3).transpose(0, 1).to(x.dtype)
+    bias = p.bias.to(x.dtype) if p.bias is not None else None
+    return F.conv_transpose2d(x, w, bias, stride=stride)
+
+
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsampling, NCHW."""
     return F.interpolate(x, scale_factor=2.0, mode="nearest")

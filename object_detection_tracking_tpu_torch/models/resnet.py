@@ -12,6 +12,14 @@ shifts every box):
   * stride-2 shortcut: plain 1x1/2 VALID (the padded extents are even).
 Module and parameter names follow the JAX tree (``group0.block0.conv1``...),
 so params.py maps them one to one. Activations NCHW, channels_last memory.
+
+``fused_stages`` (config.backbone_impl="pallas") keeps the JAX gate
+(resnet.py:244-282): in a plain bottleneck ResNet (no SE, no ResNeXt),
+each group of dilation 1 runs its stride-2 lead block unfused and its
+stride-1 tail through the bottleneck-stage kernel (ops/resnet_stage.py),
+once per group. The JAX path's ``_fusable_rows`` and ``_pick_tr >= 4``
+fallbacks are TPU VMEM limits and are left out (ROADMAP C6): every
+eligible tail is fused.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 from torch import nn
 
 from ..ops.norm import bn_relu, frozen_bn
+from ..ops.resnet_stage import fused_bottleneck_stage_cuda
 from .layers import Conv, conv2d, dense, max_pool
 
 _STRIDE2_PAD = ((1, 0), (1, 0))
@@ -102,8 +111,8 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """c2..c5 backbone. ``fused_stages`` (config.backbone_impl="pallas",
-    the fused bottleneck-stage kernel B2) is not ported yet and raises."""
+    """c2..c5 backbone; ``fused_stages`` runs the stride-1 bottleneck tails
+    through the bottleneck-stage kernel (module note)."""
 
     def __init__(self, num_blocks: Sequence[int], use_basic_block: bool,
                  use_dilations: bool = False, use_se: bool = False,
@@ -113,13 +122,11 @@ class ResNet(nn.Module):
         if use_deformable:
             raise NotImplementedError(
                 "deformable convs are not ported yet (ROADMAP A8)")
-        if fused_stages:
-            raise NotImplementedError(
-                "backbone_impl='pallas' needs the fused bottleneck-stage "
-                "kernel, not ported yet (ROADMAP B2); use backbone_impl="
-                "'xla'")
         self.conv0 = Conv(7, 3, 64, use_bias=False, bn=True)
         c_in = 64
+        fuse = (fused_stages and not use_basic_block and not use_se
+                and not use_resnext)
+        self.fused_groups = []
         for gi, (count, feat) in enumerate(zip(num_blocks,
                                                (64, 128, 256, 512))):
             stride = 1 if gi == 0 else 2
@@ -136,6 +143,8 @@ class ResNet(nn.Module):
                                                      use_resnext)
                     c_in = feat * 4
             self.add_module(f"group{gi}", group)
+            if fuse and dilation == 1:
+                self.fused_groups.append(gi)
         self.num_groups = len(num_blocks)
 
     def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
@@ -146,7 +155,19 @@ class ResNet(nn.Module):
         l = max_pool(l, 3, 2, padding=((1, 0), (1, 0)))
         outs = []
         for gi in range(self.num_groups):
-            for block in getattr(self, f"group{gi}").values():
-                l = block(l)
+            blocks = list(getattr(self, f"group{gi}").values())
+            if gi in self.fused_groups:
+                if blocks[0].stride != 1:   # the kernel is stride-1 only
+                    l = blocks[0](l)
+                    blocks = blocks[1:]
+                if blocks:
+                    # channels_last NCHW is NHWC memory: no copy either way
+                    width = blocks[0].conv1.weight.shape[0]
+                    l = fused_bottleneck_stage_cuda(
+                        blocks, l.permute(0, 2, 3, 1).contiguous(), width,
+                        4 * width).permute(0, 3, 1, 2)
+            else:
+                for block in blocks:
+                    l = block(l)
             outs.append(l)
         return outs

@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 # name -> source under the package; one shared library per source
 CUDA_SOURCES = {
     "roi_align": os.path.join("csrc", "roi_align.cu"),
+    "bottleneck_stage": os.path.join("csrc", "bottleneck_stage.cu"),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

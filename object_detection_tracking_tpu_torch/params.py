@@ -13,7 +13,7 @@ a module attribute one to one:
 
 ``init_params`` builds that tree without JAX, from a ``torch.Generator``,
 with the JAX initialiser families (models/layers.py:29-61, fpn.py:20-74,
-heads.py:20-57): the same distributions, not the same bits.
+heads.py:20-57, :106-119): the same distributions, not the same bits.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def load_npz_tree(path: str) -> Tree:
     with np.load(path) as data:
         for name in data.files:
             if name.endswith(":0") or not name.startswith(
-                    ("resnet/", "fpn/", "rpn/", "fastrcnn/")):
+                    ("resnet/", "fpn/", "rpn/", "fastrcnn/", "maskrcnn/")):
                 raise NotImplementedError(
                     f"{path}: {name!r} is not the native flat npz layout; "
                     "tensorpack/TF-named checkpoints are not ported yet "
@@ -218,7 +218,7 @@ def init_params(config, seed: int = 0) -> Tree:
     """JAX-layout param tree for ``FasterRCNNFPN(config)``, drawn from a
     ``torch.Generator`` seeded with ``seed``."""
     cfg = config
-    if cfg.use_deformable or cfg.use_gn or cfg.add_mask \
+    if cfg.use_deformable or cfg.use_gn \
             or cfg.use_small_object_head or cfg.add_relation_nn \
             or cfg.use_att_frcnn_head or cfg.use_conv_frcnn_head:
         raise NotImplementedError(
@@ -245,5 +245,15 @@ def init_params(config, seed: int = 0) -> Tree:
         "fc6": init.dense(7 * 7 * ch, fc),
         "fc7": init.dense(fc, fc),
     }
-    return {"resnet": _init_resnet(init, cfg), "fpn": fpn, "rpn": rpn,
+    tree = {"resnet": _init_resnet(init, cfg), "fpn": fpn, "rpn": rpn,
             "fastrcnn": fastrcnn}
+    if cfg.add_mask:   # JAX heads.py:106-119
+        hd, mask, c_in = cfg.mrcnn_head_dim, {}, ch
+        for k in range(4):
+            mask[f"fcn{k}"] = init.conv(3, c_in, hd, w_init="msra_fanout")
+            c_in = hd
+        mask["deconv"] = init.conv(2, hd, hd, w_init="msra_fanout")
+        mask["conv"] = init.conv(1, hd, cfg.num_class - 1,
+                                 w_init="msra_fanout")
+        tree["maskrcnn"] = mask
+    return tree

@@ -8,8 +8,10 @@ stream from pinned host memory, and batch i-1's small outputs come back
 into pinned buffers behind an event. The JAX runner's transfer formats —
 the temporal delta encode of uint8 frames and the uint16 packing of the
 outputs — existed for a slow, compressed host link to a TPU and change no
-value, so they are not ported; the bf16 rounding of the embeddings is kept,
-because the trackers see its values.
+value, so they are not ported; the bf16 rounding of the embeddings (and,
+with ``config.add_mask``, of the mask probabilities, JAX runner.py:163-166,
+:197-199) is kept, because the trackers and the JSON writer see its
+values.
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ class DetectionRunner:
         # the embeddings travel as bf16, like the JAX runner's readback,
         # so the trackers see the same rounded values
         fetch["pooled_box_feat"] = pooled.to(torch.bfloat16)
+        if "final_masks" in out:   # config.add_mask
+            fetch["final_masks"] = out["final_masks"].to(torch.bfloat16)
         if self.ship_full_feat:
             fetch["fpn_box_feat"] = out["fpn_box_feat"].to(torch.bfloat16)
         return fetch

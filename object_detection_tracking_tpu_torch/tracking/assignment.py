@@ -1,8 +1,7 @@
 """Linear assignment: native C++ lapjv fast path with scipy fallback.
 
 Port of object_detection_tracking_tpu/tracking/assignment.py. The solver
-source is the JAX package's ``native/lapjv.cpp``, read as a file (nothing
-of that package is imported); it is built with g++ into this package's
+is the port's ``csrc/lapjv.cpp``, built with g++ into the package's
 git-ignored ``build/`` directory on first use. Both paths return an optimal
 assignment (cost ties may differ — both are optimal).
 """
@@ -19,8 +18,7 @@ import scipy.optimize
 
 from ..native import PKG_DIR, build_shared
 
-_SRC = os.path.join(os.path.dirname(PKG_DIR), "object_detection_tracking_tpu",
-                    "native", "lapjv.cpp")
+_SRC = os.path.join(PKG_DIR, "csrc", "lapjv.cpp")
 _lib = None
 _tried = False
 

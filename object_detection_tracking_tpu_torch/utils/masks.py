@@ -1,0 +1,101 @@
+"""Mask post-processing: paste a 28x28 head output into the full frame and
+encode COCO-compatible compressed RLE (the port's copy of
+object_detection_tracking_tpu/utils/masks.py ``fill_full_mask``,
+``rle_encode``, ``rle_decode``).
+
+The RLE codec follows pycocotools' maskApi.c format: column-major run
+lengths, delta-encoded from the second-previous count, 5-bit LEB128-style
+chars offset by 48. cv2 is imported if present: only ``fill_full_mask``
+needs it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+try:
+    import cv2
+except ImportError:  # pragma: no cover
+    cv2 = None
+
+
+def fill_full_mask(box_xyxy, mask: np.ndarray, im_hw) -> np.ndarray:
+    """Paste an MxM soft mask into the full image (reference
+    nn.py:1565-1586): int-coordinate box, cv2 resize, 0.5 threshold."""
+    x0, y0 = int(box_xyxy[0] + 0.5), int(box_xyxy[1] + 0.5)
+    x1, y1 = int(box_xyxy[2] - 0.5), int(box_xyxy[3] - 0.5)
+    x1, y1 = max(x0, x1), max(y0, y1)
+    h_im, w_im = im_hw
+    x0, y0 = min(x0, w_im - 1), min(y0, h_im - 1)
+    x1, y1 = min(x1, w_im - 1), min(y1, h_im - 1)
+    w = x1 + 1 - x0
+    h = y1 + 1 - y0
+    resized = cv2.resize(np.asarray(mask, np.float32), (w, h))
+    out = np.zeros((h_im, w_im), np.uint8)
+    out[y0:y1 + 1, x0:x1 + 1] = (resized > 0.5).astype(np.uint8)
+    return out
+
+
+def _counts(mask: np.ndarray) -> List[int]:
+    flat = np.asarray(mask, np.uint8).flatten(order="F")
+    if flat.size == 0:
+        return [0]
+    change = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+    bounds = np.concatenate([[0], change, [flat.size]])
+    lengths = np.diff(bounds).tolist()
+    if flat[0] == 1:
+        lengths = [0] + lengths
+    return lengths
+
+
+def rle_encode(mask: np.ndarray) -> Dict:
+    """binary mask [H, W] -> {"size": [H, W], "counts": str}."""
+    h, w = mask.shape
+    cnts = _counts(mask)
+    chars = []
+    for i, c in enumerate(cnts):
+        x = int(c)
+        if i > 2:
+            x -= int(cnts[i - 2])
+        more = True
+        while more:
+            ch = x & 0x1F
+            x >>= 5
+            more = (x != -1) if (ch & 0x10) else (x != 0)
+            if more:
+                ch |= 0x20
+            chars.append(chr(48 + ch))
+    return {"size": [h, w], "counts": "".join(chars)}
+
+
+def rle_decode(rle: Dict) -> np.ndarray:
+    """{"size": [H, W], "counts": str} -> binary mask [H, W] uint8."""
+    h, w = rle["size"]
+    s = rle["counts"]
+    cnts: List[int] = []
+    i = 0
+    while i < len(s):
+        x = 0
+        k = 0
+        more = True
+        while more:
+            c = ord(s[i]) - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            i += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * (k + 1))
+            k += 1
+        if len(cnts) > 2:
+            x += cnts[-2]
+        cnts.append(x)
+    flat = np.zeros(h * w, np.uint8)
+    pos = 0
+    val = 0
+    for c in cnts:
+        flat[pos:pos + c] = val
+        pos += c
+        val = 1 - val
+    return flat.reshape((h, w), order="F")

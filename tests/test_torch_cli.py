@@ -1,18 +1,23 @@
 """The port's video detect-and-track CLI against the JAX CLI, end to end on
 the CPU: one cv2-written synthetic video of moving rectangles, one set of
 params (JAX init_params, saved with the JAX package's save_npz and loaded
-by the port's --model_path), R18 partial-COCO in float32.
+by the port's --model_path), R18 partial-COCO with the Mask R-CNN head
+(--add_mask) in float32.
 
 The JAX side runs its own CLI path (get_args, build_config, its runner and
 process_video) with roi_align_impl="xla" (the exact reference) and exact
 top-k. Both write MOT text; the rows must name the same frames and track
 ids, and the boxes agree to 0.05 px (float32 sums ordered differently move
-a box by ~1e-4 px; the files print two decimals). Frames go as BGR: the
+a box by ~1e-4 px; the files print two decimals). Both write per-frame
+JSON with RLE segmentations; decoded, each mask agrees with the JAX one on
+at least 99% of the frame's pixels (a mask value near 0.5 may threshold
+the other way). Frames go as BGR: the
 jitted JAX forward rounds the fused I420 conversion differently from its
 eager form (test_torch_forward.py covers I420).
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -27,6 +32,7 @@ from object_detection_tracking_tpu.models import get_model as jax_model  # noqa:
 from object_detection_tracking_tpu.runtime import DetectionRunner  # noqa: E402
 from object_detection_tracking_tpu.utils.weights import save_npz  # noqa: E402
 from object_detection_tracking_tpu_torch.cli import obj_detect_tracking as tcli  # noqa: E402
+from object_detection_tracking_tpu_torch.utils.masks import rle_decode  # noqa: E402
 from torch_port_common import jax_params  # noqa: E402
 
 H, W = 64, 96
@@ -68,9 +74,10 @@ def run_both(tmp_path_factory):
             "--rpn_test_post_nms_topk", "32", "--frame_gap", "2",
             "--im_batch_size", "4", "--compute_dtype", "float32",
             "--get_tracking", "--min_confidence", "0.0",
-            "--pixel_format", "bgr"]
+            "--pixel_format", "bgr", "--add_mask"]
 
-    jargs = jcli.get_args(argv + ["--tracking_dir", str(tmp / "jax")])
+    jargs = jcli.get_args(argv + ["--tracking_dir", str(tmp / "jax"),
+                                  "--out_dir", str(tmp / "jaxjson")])
     cfg = dataclasses.replace(jcli.build_config(jargs), roi_align_impl="xla",
                               rpn_topk_recall=1.0)
     model = jax_model(cfg)
@@ -104,9 +111,30 @@ def test_frame_json_written(run_both):
     assert files == sorted(f"{i}.json" for i in range(0, 24, 2))
 
 
+def test_segmentation_matches_jax_cli(run_both):
+    tmp = run_both[3]
+    masked = 0
+    for name in sorted(os.listdir(tmp / "jaxjson" / "v")):
+        with open(tmp / "jaxjson" / "v" / name) as f:
+            ref = json.load(f)
+        with open(tmp / "json" / "v" / name) as f:
+            got = json.load(f)
+        assert len(got) == len(ref), name
+        for g, r in zip(got, ref):
+            assert g["category_id"] == r["category_id"]
+            np.testing.assert_allclose(g["bbox"], r["bbox"], atol=0.05)
+            assert g["segmentation"]["size"] == r["segmentation"]["size"] \
+                == [H, W]
+            gm = rle_decode(g["segmentation"])
+            rm = rle_decode(r["segmentation"])
+            assert (gm == rm).mean() >= 0.99, name
+            masked += int(rm.any())
+    assert masked > 0
+
+
 def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path):
     base = ["--video_dir", str(tmp_path), "--video_lst_file", "x"]
-    for flag in ("--is_efficientdet", "--add_mask", "--use_deformable",
+    for flag in ("--is_efficientdet", "--use_deformable",
                  "--use_gn", "--add_relation_nn", "--use_att_frcnn_head",
                  "--use_conv_frcnn_head", "--use_lijun_video_loader"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,0 +1,184 @@
+"""The port stands alone: it imports, builds the CLI's configuration and
+solves an assignment with both ``jax`` and the JAX package blocked, no
+source of it (nor chip_smoke.py) imports the JAX package or reads one of
+its files, and its own copies of the JAX-free modules (config, class_ids,
+utils/masks, csrc/lapjv.cpp) hold the same values as the originals."""
+
+import ast
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import object_detection_tracking_tpu_torch as port
+from object_detection_tracking_tpu import class_ids as jids
+from object_detection_tracking_tpu import config as jconfig
+from object_detection_tracking_tpu_torch import class_ids as tids
+from object_detection_tracking_tpu_torch import config as tconfig
+
+PKG = os.path.dirname(port.__file__)
+ROOT = os.path.dirname(PKG)
+JAX_PKG = "object_detection_tracking_tpu"
+# a name of the JAX package (not of the port): "object_detection_tracking_tpu"
+# followed by anything but "_torch"
+_NAMES_JAX_PKG = re.compile(JAX_PKG + r"(?!_torch)\b")
+# a reference citation such as "object_detection_tracking_tpu/ops/x.py:138"
+_CITATION = re.compile(JAX_PKG + r"/[\w/]+\.py:\d+")
+
+
+def _sources():
+    for dirpath, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d not in ("build", "__pycache__")]
+        for name in sorted(files):
+            if name.endswith((".py", ".cu", ".cpp", ".h", ".cuh")):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_runs_with_jax_and_the_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.modules['{JAX_PKG}'] = None\n"
+        "import numpy as np, torch\n"
+        "import chip_smoke\n"
+        "from object_detection_tracking_tpu_torch.cli import "
+        "obj_detect_tracking as cli\n"
+        "from object_detection_tracking_tpu_torch.tracking import assignment\n"
+        "args = cli.get_args(['--video_dir', '.', '--video_lst_file', 'x', "
+        "'--add_mask'])\n"
+        "cfg = cli.build_config(args, torch.device('cpu'))\n"
+        "assert cfg.resnet_depth == 101 and cfg.add_mask, cfg\n"
+        "rows, cols = assignment.linear_sum_assignment(\n"
+        "    np.array([[4., 1., 3.], [2., 0., 5.], [3., 2., 2.]]))\n"
+        "assert sorted(zip(rows.tolist(), cols.tolist())) == "
+        "[(0, 1), (1, 0), (2, 2)]\n"
+        "assert assignment._load_native() is not None\n"
+        f"bad = [m for m, v in sys.modules.items() if v is not None and "
+        f"(m == 'jax' or m.startswith('jax.') or m == '{JAX_PKG}' or "
+        f"m.startswith('{JAX_PKG}.'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_imports_or_reads_the_jax_package():
+    """Imports (Python ASTs, C #includes) and string constants other than
+    docstrings and file:line citations must not name the JAX package."""
+    for path in _sources():
+        with open(path) as f:
+            text = f.read()
+        rel = os.path.relpath(path, ROOT)
+        if not path.endswith(".py"):
+            for line in text.splitlines():
+                if line.lstrip().startswith("#include"):
+                    assert not _NAMES_JAX_PKG.search(line), (rel, line)
+            continue
+        tree = ast.parse(text)
+        docstrings = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef)) and node.body:
+                first = node.body[0]
+                if isinstance(first, ast.Expr) and isinstance(
+                        first.value, ast.Constant):
+                    docstrings.add(id(first.value))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif (isinstance(node, ast.Constant)
+                  and isinstance(node.value, str)
+                  and id(node) not in docstrings):
+                rest = _CITATION.sub("", node.value)
+                assert not _NAMES_JAX_PKG.search(rest), (rel, node.lineno)
+                continue
+            else:
+                continue
+            for name in names:
+                assert not _NAMES_JAX_PKG.match(name), (rel, node.lineno)
+                assert name != "jax" and not name.startswith("jax."), (
+                    rel, node.lineno)
+
+
+def _properties(cls):
+    return sorted(n for n, v in vars(cls).items() if isinstance(v, property))
+
+
+PRESETS = [("version", v) for v in (2, 3, 4, 5, 6)] + [("coco", None),
+                                                        ("coco_partial", None),
+                                                        ("default", None)]
+
+
+def _preset(mod, kind, arg):
+    cls = mod.DetectorConfig
+    if kind == "version":
+        return cls.from_version(arg)
+    if kind == "default":
+        return cls()
+    return getattr(cls, kind)()
+
+
+@pytest.mark.parametrize("kind,arg", PRESETS)
+def test_config_presets_equal_jax(kind, arg):
+    ref, got = _preset(jconfig, kind, arg), _preset(tconfig, kind, arg)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.classname2id == ref.classname2id
+    names = _properties(jconfig.DetectorConfig)
+    assert names == _properties(tconfig.DetectorConfig)
+    for name in names:
+        assert getattr(got, name) == getattr(ref, name), name
+
+
+def test_tracker_config_and_resnet_arch_equal_jax():
+    assert dataclasses.asdict(tconfig.TrackerConfig()) == \
+        dataclasses.asdict(jconfig.TrackerConfig())
+    assert tconfig.RESNET_ARCH == jconfig.RESNET_ARCH
+    assert [f.name for f in dataclasses.fields(tconfig.DetectorConfig)] == \
+        [f.name for f in dataclasses.fields(jconfig.DetectorConfig)]
+
+
+def test_class_id_tables_equal_jax():
+    public = sorted(n for n in vars(jids) if not n.startswith("_")
+                    and isinstance(getattr(jids, n), (dict, list, tuple)))
+    assert public
+    for name in public:
+        assert getattr(tids, name) == getattr(jids, name), name
+
+
+def test_lapjv_source_is_the_jax_solver():
+    """Same code as the JAX package's native/lapjv.cpp; comments may
+    differ."""
+    def code(path):
+        with open(path) as f:
+            text = re.sub(r"//[^\n]*", "", f.read())
+        return [ln.strip() for ln in text.splitlines() if ln.strip()]
+    assert code(os.path.join(PKG, "csrc", "lapjv.cpp")) == code(
+        os.path.join(ROOT, JAX_PKG, "native", "lapjv.cpp"))
+
+
+def test_masks_match_jax():
+    pytest.importorskip("cv2")
+    from object_detection_tracking_tpu.utils import masks as jm
+    from object_detection_tracking_tpu_torch.utils import masks as tm
+    rng = np.random.RandomState(0)
+    im_hw = (72, 96)
+    for _ in range(20):
+        soft = rng.rand(28, 28).astype(np.float32)
+        x0, y0 = rng.rand(2) * (im_hw[1] - 10, im_hw[0] - 10)
+        box = np.array([x0, y0, x0 + 1 + rng.rand() * 60,
+                        y0 + 1 + rng.rand() * 50], np.float32)
+        ref = jm.fill_full_mask(box, soft, im_hw)
+        got = tm.fill_full_mask(box, soft, im_hw)
+        np.testing.assert_array_equal(got, ref)
+        rle = tm.rle_encode(got)
+        assert rle == jm.rle_encode(ref)
+        np.testing.assert_array_equal(tm.rle_decode(rle), ref)
+        np.testing.assert_array_equal(jm.rle_decode(rle), got)

@@ -5,9 +5,13 @@ and skips without one; none needs JAX, so on the machine with the card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (``--noconftest``: tests/conftest.py sets up JAX for the JAX package's
-tests.) Tolerance 1e-4 absolute on unit-normal features: kernel and plain
-version sample the same float32 fpcoor points; only the order of the sums
-differs."""
+tests.) ROIAlign: 1e-4 absolute on unit-normal features; kernel and plain
+version sample the same float32 fpcoor points, only the order of the sums
+differs. Bottleneck stage: float32 (TF32 off) within 1e-4 of the plain
+version's largest magnitude, the same float32 sums in another order;
+bf16 within 2e-2 of it, the JAX package's own bf16 bound for the Pallas
+kernel (test_resnet_stage_pallas.py:66), since one bf16 rounding of an
+intermediate that lands the other way moves everything after it."""
 
 import dataclasses
 
@@ -15,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from object_detection_tracking_tpu.config import DetectorConfig
+from object_detection_tracking_tpu_torch.config import DetectorConfig
 from object_detection_tracking_tpu_torch.models import get_model
+from object_detection_tracking_tpu_torch.models.resnet import Bottleneck
+from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
 from object_detection_tracking_tpu_torch.ops import roi_align as RA
 from object_detection_tracking_tpu_torch.params import (init_params,
                                                         params_from_jax)
@@ -110,3 +116,114 @@ def test_forward_with_kernel_matches_plain_roi_align(cuda):
     scale = ref["fpn_box_feat"].abs().max()
     assert (got["fpn_box_feat"] - ref["fpn_box_feat"]).abs().max() \
         <= 1e-4 * scale
+
+
+def stage_blocks(n, c_in, width, seed=0):
+    """n stride-1 bottleneck blocks (a shortcut conv on the first when
+    c_in != 4 * width), msra weights and non-trivial frozen-BN statistics,
+    from numpy."""
+    rng = np.random.RandomState(seed)
+    blocks, c = [], c_in
+    for _ in range(n):
+        blk = Bottleneck(c, width, 1, 1, False, False)
+        convs = [blk.conv1, blk.conv2, blk.conv3]
+        if blk.convshortcut is not None:
+            convs.append(blk.convshortcut)
+        for conv in convs:
+            o, i, kh, kw = conv.weight.shape
+            conv.weight.data = torch.from_numpy(
+                (rng.randn(o, i, kh, kw) * np.sqrt(2.0 / (i * kh * kw)))
+                .astype(np.float32))
+            bn = conv.bn
+            bn.mean.copy_(torch.from_numpy(rng.randn(o) * 0.1))
+            bn.variance.copy_(torch.from_numpy(np.abs(rng.randn(o)) + 0.5))
+            bn.gamma.copy_(torch.from_numpy(1 + 0.1 * rng.randn(o)))
+            bn.beta.copy_(torch.from_numpy(0.05 * rng.randn(o)))
+        blocks.append(blk)
+        c = 4 * width
+    return blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,width,hw", [
+    (1, 64, 32, (23, 40)),      # shortcut conv, N=32 on the 64-wide tile
+    (2, 64, 32, (23, 40)),
+    (3, 64, 64, (17, 30)),      # c2-like: C_in 64, width 64, 256 out
+    (2, 128, 32, (23, 40)),     # identity first block
+    (3, 96, 24, (9, 13)),       # width 24: K=216 crosses taps in a stage
+])
+def test_bottleneck_stage_kernel_matches_plain(cuda, dtype, n, c_in, width,
+                                               hw):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    blocks = [b.to(cuda) for b in stage_blocks(n, c_in, width)]
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        2, *hw, c_in).astype(np.float32)).to(cuda, dt)
+    before = RS.fused_bottleneck_stage_cuda.launches
+    got = RS.fused_bottleneck_stage_cuda(blocks, x, width, 4 * width)
+    torch.cuda.synchronize()
+    assert RS.fused_bottleneck_stage_cuda.launches == before + 1
+    ref = RS.fused_bottleneck_stage(blocks, x, width, 4 * width)
+    assert got.shape == ref.shape == (2, *hw, 4 * width)
+    assert got.dtype == dt
+    rel = 1e-4 if dtype == "float32" else 2e-2
+    scale = ref.float().abs().max().item()
+    d = (got.float() - ref.float()).abs()
+    assert d.max().item() <= rel * scale
+    # the image edges, where the 3x3 must read zeros
+    assert max(d[:, 0].max().item(), d[:, -1].max().item(),
+               d[:, :, 0].max().item(), d[:, :, -1].max().item()) \
+        <= rel * scale
+
+
+@pytest.mark.cuda
+def test_bottleneck_stage_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda):
+    blocks = [b.to(cuda) for b in stage_blocks(2, 64, 16)]
+    x = torch.randn(1, 8, 12, 64, device=cuda)
+    with pytest.raises(ValueError):
+        RS.fused_bottleneck_stage_cuda(blocks, x.half(), 16, 64)
+    with pytest.raises(ValueError):
+        RS.fused_bottleneck_stage_cuda(blocks, x.permute(0, 2, 1, 3), 16, 64)
+    odd = [b.to(cuda) for b in stage_blocks(1, 60, 15)]
+    with pytest.raises(ValueError):
+        RS.fused_bottleneck_stage_cuda(odd, torch.randn(1, 8, 12, 60,
+                                                        device=cuda), 15, 60)
+
+
+@pytest.mark.cuda
+def test_forward_with_fused_backbone_matches_unfused(cuda):
+    """A small R50 forward in f32 (TF32 off) with backbone_impl "pallas"
+    (four stage launches: c2..c5 tails, no dilation) against "xla": the
+    c2..c5 maps within 1e-4 of their largest magnitude, labels and
+    validity equal."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DetectorConfig(num_class=5, resnet_depth=50, short_edge_size=64,
+                         max_size=96, rpn_test_post_nms_topk=32,
+                         result_per_im=8, compute_dtype="float32",
+                         backbone_impl="pallas")
+    tree = init_params(cfg, seed=0)
+    for gname, group in tree["resnet"].items():
+        if gname.startswith("group"):
+            for blk in group.values():
+                blk["conv3"]["bn"]["gamma"] *= 0.2
+    fused = params_from_jax(tree, get_model(cfg)).to(cuda)
+    plain = params_from_jax(tree, get_model(dataclasses.replace(
+        cfg, backbone_impl="xla"))).to(cuda)
+    x = torch.randn(2, 3, 64, 96, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    before = RS.fused_bottleneck_stage_cuda.launches
+    with torch.inference_mode():
+        got = fused.resnet(x)
+        ref = plain.resnet(x)
+    assert RS.fused_bottleneck_stage_cuda.launches == before + 4
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max() <= 1e-4 * r.abs().max()
+    imgs = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (2, 64, 96, 3)).astype(np.uint8)).to(cuda)
+    a, b = fused(imgs), plain(imgs)
+    assert torch.equal(a["final_valid"], b["final_valid"])
+    assert torch.equal(a["final_labels"], b["final_labels"])

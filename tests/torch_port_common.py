@@ -42,3 +42,33 @@ def close(got, ref, rel=1e-4):
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=rel,
                                atol=rel * max(np.abs(ref).max(), 1e-6))
+
+
+def compare_forward(cfg, params, imgs):
+    """The port's forward against the eager JAX forward on the same params
+    and uint8 frames: valid slots and labels equal, boxes to 1e-3 px,
+    probabilities to 1e-5, embeddings to 1e-4 of their largest magnitude,
+    invalid slots 0. Returns (port outputs, JAX outputs) as numpy."""
+    import torch
+
+    from object_detection_tracking_tpu.models import get_model as jax_model
+    from object_detection_tracking_tpu_torch.models import get_model
+    from object_detection_tracking_tpu_torch.params import params_from_jax
+    tm = params_from_jax(params, get_model(cfg))
+    ref = {k: np.asarray(v)
+           for k, v in jax_model(cfg).forward(params, imgs).items()}
+    with torch.inference_mode():
+        got = {k: v.numpy() for k, v in tm(torch.from_numpy(imgs)).items()}
+    assert set(got) == set(ref)
+    valid = ref["final_valid"]
+    assert valid.any()
+    np.testing.assert_array_equal(got["final_valid"], valid)
+    np.testing.assert_array_equal(got["final_labels"], ref["final_labels"])
+    np.testing.assert_allclose(got["final_boxes"], ref["final_boxes"],
+                               atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got["final_probs"], ref["final_probs"],
+                               atol=1e-5, rtol=0)
+    close(got["pooled_box_feat"], ref["pooled_box_feat"])
+    close(got["fpn_box_feat"], ref["fpn_box_feat"])
+    assert not got["fpn_box_feat"][~valid].any()
+    return got, ref
