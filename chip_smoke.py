@@ -10,7 +10,8 @@ Run from the root of the repository, on a machine with a CUDA GPU, nvcc
 Phases, one result line each; any failure raises and the exit code is not 0:
   1. device    the card's name and power limit; TF32 off for the f32 checks
   2. build     every CUDA kernel under object_detection_tracking_tpu_torch/
-               csrc, compiled by nvcc for sm_90a, timed
+               csrc, compiled by nvcc for sm_90a, timed; the bottleneck-
+               stage library's SASS must hold HGMMA (wgmma) instructions
   3. kernels   ROIAlign kernel vs the plain version at the main path's
                shapes (B=8, the 736x1280 FPN pyramid, C=256, P=7, N=1000
                and N=100), f32 and bf16 features, ~30% invalid slots,
@@ -29,7 +30,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                the shortcut conv, c3 tail 3 blocks, c4 tail 22 blocks), f32
                (TF32 off) and bf16, non-trivial frozen-BN statistics; median
                CUDA-event times of kernel, plain version and the port's
-               unfused cuDNN Bottleneck stack over the same blocks
+               unfused cuDNN Bottleneck stack over the same blocks; the
+               kernel's bf16 time split by conv kind (1x1, 3x3) within one
+               stack (torch.profiler), beside the stack's bound and the
+               per-conv floor
   7. actev     the CLI's default detector, R101-FPN v4 (dilated c5, class-
                agnostic box head, 16 ActEV classes) at 1920x1080 with the
                Mask R-CNN head, backbone_impl="pallas", bf16, B=8, frame gap
@@ -50,6 +54,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -649,22 +654,73 @@ def stage_blocks(n, c_in, width, gen):
     return blocks
 
 
-def stage_work(n, h, w, c_in, width, elem_bytes):
-    """(operations, bytes) of one stack at B=8: 2 per multiply-add of every
-    conv; x read once, the output written once, every folded weight and
-    float32 bias read once."""
+def stage_convs(n, h, w, c_in, width):
+    """The convs of one stack at B=8, in launch order: (kind, M, K, N,
+    activation elements read, activation elements written)."""
     m, c_out, cin = BATCH * h * w, 4 * width, c_in
-    macs = wbytes = 0
+    convs = []
     for i in range(n):
-        k = cin * width + 9 * width * width + width * c_out
-        nbias = 2 * width + c_out
+        convs.append(("1x1", m, cin, width, m * cin, m * width))
+        convs.append(("3x3", m, 9 * width, width, m * width, m * width))
         if i == 0 and cin != c_out:
-            k += cin * c_out
-            nbias += c_out
-        macs += k
-        wbytes += k * elem_bytes + 4 * nbias
+            convs.append(("1x1", m, cin, c_out, m * cin, m * c_out))
+        # conv3 reads l2 and the residual (x or the shortcut's output)
+        convs.append(("1x1", m, width, c_out, m * (width + c_out),
+                      m * c_out))
         cin = c_out
-    return 2 * m * macs, m * (c_in + c_out) * elem_bytes + wbytes
+    return convs
+
+
+def stage_work(n, h, w, c_in, width, elem_bytes):
+    """The work of one stack at B=8. Operations: 2 per multiply-add of
+    every conv. Bytes of the stack as one function: x read once, the
+    output written once, every folded weight and float32 bias read once.
+    The per-conv floor: the launches run one after another, each at the
+    larger of its operations over the peak and its bytes over the memory
+    rate, where a conv's bytes are its input (and residual) read once,
+    its output written once, its weight and bias read once; so l1, l2,
+    the shortcut's output and each block's output are each written once
+    and read once. Returns (operations, bytes, per-conv floor ms, {kind:
+    (operations, per-conv bytes)})."""
+    peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
+    convs = stage_convs(n, h, w, c_in, width)
+    flops = wbytes = floor_ms = 0
+    kinds = {}
+    for kind, m, k, nn, reads, writes in convs:
+        f = 2 * m * k * nn
+        wb = k * nn * elem_bytes + 4 * nn
+        b = (reads + writes) * elem_bytes + wb
+        flops += f
+        wbytes += wb
+        floor_ms += 1e3 * max(f / peak, b / PEAK_BYTES)
+        kf, kb = kinds.get(kind, (0, 0))
+        kinds[kind] = (kf + f, kb + b)
+    m = BATCH * h * w
+    return (flops, m * (c_in + 4 * width) * elem_bytes + wbytes, floor_ms,
+            kinds)
+
+
+def kind_ms(fn, runs=3):
+    """Device time of fn's bottleneck-stage launches by conv kind (the
+    bf16 kernels' names), per call: torch.profiler over `runs` calls,
+    after one profiled warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for n in (1, runs):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    out = {"1x1": 0.0, "3x3": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for kind, name in (("1x1", "bneck_conv1x1"), ("3x3", "bneck_conv3x3")):
+            if name in e.key:
+                out[kind] += e.self_device_time_total / 1e3 / runs
+    return out
 
 
 def phase_stage():
@@ -717,8 +773,8 @@ def phase_stage():
             self_err = (ref.float() - ref64).abs().max().item()
             k64_err = (got.float() - ref64).abs().max().item()
             del ref64
-            flops, nbytes = stage_work(n, h, w, c_in, width,
-                                       x.element_size())
+            flops, nbytes, floor_ms, kinds = stage_work(
+                n, h, w, c_in, width, x.element_size())
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
                 else PEAK_F32_FLOPS
             t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
@@ -727,15 +783,29 @@ def phase_stage():
                  "kernel_vs_f64sums": k64_err,
                  "tflop": flops / 1e12, "gbytes": nbytes / 1e9,
                  "bound_ms": max(t_ops, t_bytes),
-                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "per_conv_floor_ms": floor_ms}
             msg = ""
             if dtype == torch.bfloat16:
                 r["ms"], r["plain_ms"], r["cudnn_ms"] = median_ms(
                     [kernel, plain, cudnn])
+                r["by_kind"] = {}
+                for kind, ms in kind_ms(kernel).items():
+                    kf, kb = kinds[kind]
+                    r["by_kind"][kind] = {
+                        "ms": ms, "tflop_per_s": kf / ms / 1e9,
+                        "gb_per_s": kb / ms / 1e6, "tflop": kf / 1e12,
+                        "gbytes": kb / 1e9}
                 msg = (f"; kernel {r['ms']:.3f} ms "
                        f"({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain "
                        f"{r['plain_ms']:.3f} ms, unfused cuDNN stack "
-                       f"{r['cudnn_ms']:.3f} ms (median of 15, CUDA events)")
+                       f"{r['cudnn_ms']:.3f} ms (median of 15, CUDA events); "
+                       f"per-conv floor {floor_ms:.3f} ms; by conv kind "
+                       f"(torch.profiler, mean of 3): " + ", ".join(
+                           f"{k} {v['ms']:.3f} ms ({v['tflop_per_s']:.1f} "
+                           f"TFLOP/s, {v['gb_per_s']:.0f} GB/s of its "
+                           f"{v['gbytes']:.3f} GB)"
+                           for k, v in r["by_kind"].items()))
             results[(name, dname)] = r
             log("stage", f"{name} [{BATCH},{h},{w},{c_in}] width {width} x{n}"
                 f" {dname}: max |kernel - plain| {err:.4g} (bound "
@@ -745,6 +815,10 @@ def phase_stage():
                 f"{flops / 1e12:.3f} TFLOP, "
                 f"{nbytes / 1e9:.3f} GB, bound {r['bound_ms']:.3f} ms "
                 f"({r['bound_by']}){msg}")
+            if dtype == torch.bfloat16 and not r["ms"] < r["cudnn_ms"]:
+                raise AssertionError(
+                    f"bottleneck stage {name} bf16: kernel {r['ms']:.3f} ms "
+                    f"not below the unfused cuDNN stack {r['cudnn_ms']:.3f}")
             del x, got, ref
         del blocks
     return results
@@ -918,9 +992,23 @@ def build_kernels(native):
     log("build", f"all {len(secs)} in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in native.build_logs.items():
+        kernel = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] + ": "   # mangled name
             if "registers" in line or "spill" in line:
-                log("build", f"  {name}: {line.strip()}")
+                log("build", f"  {name}: {kernel}{line.strip()}")
+    sass = subprocess.run(
+        [native.cuda_tool("cuobjdump"), "-sass",
+         native.lib_paths["bottleneck_stage"]], capture_output=True,
+        text=True, check=True, timeout=300).stdout
+    n_hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    n_hmma = len(re.findall(r"\bHMMA\.", sass))
+    log("build", f"bottleneck_stage SASS (cuobjdump -sass): {n_hgmma} HGMMA "
+        f"(wgmma), {n_hmma} HMMA (mma.sync/WMMA) instructions")
+    if n_hgmma == 0:
+        raise AssertionError("bottleneck_stage: no HGMMA in its SASS")
+    return {"hgmma": n_hgmma, "hmma": n_hmma}
 
 
 def main():
@@ -939,7 +1027,7 @@ def main():
         f"{torch.cuda.device_count()}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; TF32 off for cuDNN and matmul (f32 checks)")
 
-    build_kernels(native)
+    sass = build_kernels(native)
     kres = phase_kernels()
     sres = phase_stage()
     with tempfile.TemporaryDirectory() as tmp:
@@ -989,12 +1077,22 @@ def main():
              r["bound_by"] == "operations" for r in bf) else "bytes",
          "library_ms": None,
          "cudnn_stack_ms": sum(r["cudnn_ms"] for r in bf),
+         "per_conv_floor_ms": sum(r["per_conv_floor_ms"] for r in bf),
+         "by_kind": {kind: {
+             "ms": sum(r["by_kind"][kind]["ms"] for r in bf),
+             "tflop_per_s": sum(r["by_kind"][kind]["tflop"] for r in bf)
+             / sum(r["by_kind"][kind]["ms"] for r in bf) * 1e3,
+             "gb_per_s": sum(r["by_kind"][kind]["gbytes"] for r in bf)
+             / sum(r["by_kind"][kind]["ms"] for r in bf) * 1e3}
+             for kind in ("1x1", "3x3")},
+         "sass": sass,
          "by_stage": {name: sres[(name, "bfloat16")]
                       for name, *_ in STAGES},
          "shapes": "ActEV path's stages at B=8, 1088x1920, bf16: c2 "
                    "[8,272,480,64] x3, c3 [8,136,240,512] x3, c4 "
-                   "[8,68,120,1024] x22; ms, plain_ms, bound_ms and "
-                   "cudnn_stack_ms summed over the three"}],
+                   "[8,68,120,1024] x22; ms, plain_ms, bound_ms, "
+                   "per_conv_floor_ms, cudnn_stack_ms and by_kind summed "
+                   "over the three"}],
         "actev_path": {k: v for k, v in actev.items() if k != "check"},
         "actev_profile": prof, "card": card}
     print(json.dumps(kernels))

@@ -33,12 +33,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
+lib_paths: Dict[str, str] = {}   # name -> the loaded library's file
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump): under $CUDA_HOME/bin or
+    /usr/local/cuda/bin, else on the PATH."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
+    path = os.path.join(home, "bin", name)
+    return path if os.path.exists(path) else name
 
 
 def build_shared(src: str, compiler: List[str], stem: str) -> str:
@@ -74,6 +77,7 @@ def load_cuda(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         path = build_shared(os.path.join(PKG_DIR, CUDA_SOURCES[name]),
-                            [_nvcc()] + NVCC_FLAGS, name)
+                            [cuda_tool("nvcc")] + NVCC_FLAGS, name)
         lib = _loaded[name] = ctypes.CDLL(path)
+        lib_paths[name] = path
     return lib

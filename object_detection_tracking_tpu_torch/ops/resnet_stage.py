@@ -20,7 +20,8 @@ Layouts follow the JAX package: x [B, H, W, C_in] NHWC, output
 [B, H, W, c_out] in x's dtype. ``prepare_stage_weights`` gives the conv
 weights as [K, N] matrices, K = C_in for a 1x1 and 9 * C_in for the 3x3 in
 (dy, dx, c) order: the values of the JAX ``prepare_stage_weights``, the
-layout the kernel reads.
+layout the plain version and the kernel's f32 path read. The bf16 path
+reads the same matrices transposed once, K-major [N, K].
 """
 
 from __future__ import annotations
@@ -78,22 +79,37 @@ _FOLDED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _signature(blocks: Sequence) -> tuple:
+    """Storage, device and version of every tensor the fold reads (each
+    conv's weight and its BN's four), read directly: walking the modules'
+    parameters and buffers costs ~4x as much, per call of the stage."""
     sig = []
     for blk in blocks:
-        for t in list(blk.parameters()) + list(blk.buffers()):
-            sig.append((t.data_ptr(), t.device,
-                        -1 if t.is_inference() else t._version))
+        for conv in (blk.conv1, blk.conv2, blk.conv3, blk.convshortcut):
+            if conv is None:
+                continue
+            bn = conv.bn
+            for t in (conv.weight, bn.gamma, bn.beta, bn.mean, bn.variance):
+                sig.append((t.data_ptr(), t.device,
+                            -1 if t.is_inference() else t._version))
     return tuple(sig)
 
 
 def _stage_weights(blocks: Sequence, dtype: torch.dtype, width: int,
-                   c_out: int):
+                   c_out: int, k_major: bool = False):
+    """(args, has_sc) of ``prepare_stage_weights``, cached. With
+    ``k_major`` each weight matrix is the same fold transposed to [N, K]
+    (K contiguous), the layout the bf16 kernel's TMA loads."""
     cache = _FOLDED.setdefault(blocks[0], {})
-    key = (len(blocks), dtype)
+    key = (len(blocks), dtype, k_major)
     sig = _signature(blocks)
     hit = cache.get(key)
     if hit is not None and hit[0] == sig and -1 not in (s[2] for s in sig):
         return hit[1], hit[2]
+    if k_major:
+        args, has_sc = _stage_weights(blocks, dtype, width, c_out)
+        args = [t.t().contiguous() if t.dim() == 2 else t for t in args]
+        cache[key] = (sig, args, has_sc)
+        return args, has_sc
     args, has_sc = prepare_stage_weights(blocks, dtype)
     if any(has_sc[1:]):
         raise ValueError("a shortcut conv is taken on the first block only")
@@ -195,7 +211,10 @@ def fused_bottleneck_stage_cuda(blocks: Sequence, x: torch.Tensor,
     if c_in % 8 or width % 8 or c_out % 8:
         raise ValueError("channel counts must be multiples of 8 (16-byte "
                          f"rows): C_in {c_in}, width {width}, c_out {c_out}")
-    args, has_sc = _stage_weights(blocks, x.dtype, width, c_out)
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
+    args, has_sc = _stage_weights(blocks, x.dtype, width, c_out,
+                                  k_major=x.dtype == torch.bfloat16)
     if not has_sc[0] and c_in != c_out:
         raise ValueError(f"C_in {c_in} != c_out {c_out} needs a shortcut "
                          "conv on the first block")

@@ -18,9 +18,12 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from object_detection_tracking_tpu_torch.config import DetectorConfig
 from object_detection_tracking_tpu_torch.models import get_model
+from object_detection_tracking_tpu_torch.models.layers import (Conv, conv2d,
+                                                               deconv2d)
 from object_detection_tracking_tpu_torch.models.resnet import Bottleneck
 from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
 from object_detection_tracking_tpu_torch.ops import roi_align as RA
@@ -147,11 +150,19 @@ def stage_blocks(n, c_in, width, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,c_in,width,hw", [
-    (1, 64, 32, (23, 40)),      # shortcut conv, N=32 on the 64-wide tile
+    # M = 2 x 23 x 40 = 1840, not a multiple of the 128-pixel tile;
+    # shortcut conv; N=32 on the 64-wide tile; conv1's K=64 a single stage
+    (1, 64, 32, (23, 40)),
     (2, 64, 32, (23, 40)),
     (3, 64, 64, (17, 30)),      # c2-like: C_in 64, width 64, 256 out
     (2, 128, 32, (23, 40)),     # identity first block
-    (3, 96, 24, (9, 13)),       # width 24: K=216 crosses taps in a stage
+    # width 24: N=24 on the 64-wide tile; the 3x3's K=216 crosses taps
+    # inside a 64-deep stage and ends mid-stage
+    (3, 96, 24, (9, 13)),
+    (2, 512, 128, (7, 11)),     # c3-like: 128-wide tiles, conv3 N=512
+    (1, 1024, 256, (9, 14)),    # c4-like: C_in 1024, width 256, K=2304
+    (1, 512, 64, (9, 10)),      # 1x1s of K=512 onto N=64 and N=256
+    (4, 256, 64, (15, 22)),     # a 4-block stack
 ])
 def test_bottleneck_stage_kernel_matches_plain(cuda, dtype, n, c_in, width,
                                                hw):
@@ -179,6 +190,44 @@ def test_bottleneck_stage_kernel_matches_plain(cuda, dtype, n, c_in, width,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,c_in,c_out,hw", [
+    ("conv3x3", 64, 48, (19, 27)), ("conv1x1", 64, 48, (19, 27)),
+    ("deconv", 64, 48, (19, 27)),
+    # the ActEV path's FPN at its c4 level (68x120): lateral 1x1 from
+    # 1024 channels, posthoc 3x3; the mask head's deconv at 14x14
+    ("conv1x1", 1024, 256, (68, 120)), ("conv3x3", 256, 256, (68, 120)),
+    ("deconv", 256, 256, (14, 14)),
+])
+def test_bf16_conv_bias_rounds_like_jax(cuda, kind, c_in, c_out, hw):
+    """ROADMAP C4: the JAX conv2d and deconv2d round the conv to bf16, then
+    add the bf16 bias in bf16 (JAX models/layers.py:81-84, :150-152). The
+    port's conv2d and deconv2d must give exactly that on the card."""
+    rng = np.random.RandomState(5)
+    k = {"conv3x3": 3, "conv1x1": 1, "deconv": 2}[kind]
+    p = Conv(k, c_in, c_out)
+    p.weight.data = torch.from_numpy(rng.randn(c_out, c_in, k, k).astype(
+        np.float32) / np.sqrt(c_in * k * k))
+    p.bias.data = torch.from_numpy(rng.randn(c_out).astype(np.float32))
+    p.to(cuda)
+    x = torch.from_numpy(rng.randn(2, c_in, *hw).astype(np.float32)).to(
+        cuda, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = p.weight.to(torch.bfloat16)
+    b = p.bias.to(torch.bfloat16)[:, None, None]
+    if kind == "deconv":
+        got = deconv2d(p, x)
+        want = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1),
+                                  stride=2) + b
+    else:
+        got = conv2d(p, x)
+        want = F.conv2d(x, w, padding=(k - 1) // 2) + b
+    d = (got.float() - want.float()).abs()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want), (
+        f"{int((d > 0).sum())} of {d.numel()} elements differ, max "
+        f"{d.max().item():.4g} (max |want| {want.abs().max().item():.4g})")
+
+
+@pytest.mark.cuda
 def test_bottleneck_stage_wrapper_rejects_what_the_kernel_does_not_take(
         cuda):
     blocks = [b.to(cuda) for b in stage_blocks(2, 64, 16)]
@@ -191,6 +240,11 @@ def test_bottleneck_stage_wrapper_rejects_what_the_kernel_does_not_take(
     with pytest.raises(ValueError):
         RS.fused_bottleneck_stage_cuda(odd, torch.randn(1, 8, 12, 60,
                                                         device=cuda), 15, 60)
+    # rows must start on 16 bytes (TMA, 16-byte copies)
+    shifted = torch.randn(1 * 8 * 12 * 64 + 1, device=cuda)[1:]
+    with pytest.raises(ValueError):
+        RS.fused_bottleneck_stage_cuda(blocks, shifted.view(1, 8, 12, 64),
+                                       16, 64)
 
 
 @pytest.mark.cuda
