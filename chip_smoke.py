@@ -16,6 +16,8 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                shapes (B=8, the 736x1280 FPN pyramid, C=256, P=7, N=1000
                and N=100), f32 and bf16 features, ~30% invalid slots,
                zero-area, edge and aspect-5 boxes; median CUDA-event times
+               of the wrapper's call, the kernel's own device time
+               (torch.profiler) and its share of the bound
   4. main path R50-FPN partial-COCO at full width (random weights from seed
                0), bf16: synthetic 1280x720 frames -> VideoEnqueuer ->
                DetectionRunner -> Deep SORT on Person and Vehicle -> MOT
@@ -42,7 +44,8 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                process_video; both kernels must launch exactly 3 times per
                batch; then one f32 batch with the fused and with the unfused
                backbone, compared; then every kernel launch of one bf16
-               forward redone on its own inputs by kernel and plain version
+               forward redone on its own inputs by kernel and plain
+               version, each ROIAlign launch timed as in phase 3
   8. profile   that path: host wall of one forward with the fused and the
                unfused backbone, device time by kernel kind
 Then one JSON line of kernels, the card line, and the last line:
@@ -188,12 +191,14 @@ def phase_kernels():
             if got[~valid].abs().max().item() != 0.0:
                 raise AssertionError("roi_align: invalid slots not zero")
             k_ms, p_ms = median_ms([kernel, plain])
+            d_ms = roi_device_ms(kernel)
             b_ms = roi_bound_ms(feats, boxes, valid, STRIDES, 7)
-            results[(n, dtype)] = (err, k_ms, p_ms, b_ms)
+            results[(n, dtype)] = (err, k_ms, p_ms, b_ms, d_ms)
             log("kernels", f"roi_align N={n} {str(dtype)[6:]}: max_abs_err "
                 f"{err:.3g} (bound {KERNEL_ATOL}), kernel {k_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms (median of 15, CUDA events), bound "
-                f"{b_ms:.4f} ms (bytes)")
+                f"plain {p_ms:.4f} ms (median of 15, CUDA events), kernel "
+                f"device {d_ms:.4f} ms (torch.profiler, mean of 15), bound "
+                f"{b_ms:.4f} ms (bytes), {b_ms / d_ms:.1%} of it")
             del feats, boxes, valid, got, ref
     return results
 
@@ -320,25 +325,20 @@ def match_share(ref, got):
     return hit / max(total, 1), total
 
 
-def roi_bound_ms(feats, boxes, valid, strides, pool):
-    """The least time of one ROIAlign launch on the card: the bytes it must
-    move over the memory rate (its float32 output, the boxes and validity,
-    and the feature pixels its valid boxes' bilinear samples touch, counted
-    once per image and level: the union of each box's sample rectangle on
-    its canonical level, clipped to the map). Its few operations per byte
-    leave it bound by bytes."""
+def roi_windows(feats, boxes, valid, strides, pool):
+    """Per FPN level, the pixel rectangles that the valid boxes' bilinear
+    samples touch on their canonical level, clipped to the map: yields
+    (level, image, r0, r1, c0, c1), the last five tensors over the boxes
+    with a sample inside the map (inclusive bounds)."""
     import torch
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
     b, n = boxes.shape[:2]
-    c = feats[0].shape[-1]
     lvl = RA.fpn_map_rois_to_levels(boxes).long().clamp(0, len(feats) - 1)
     img = torch.arange(b, device=boxes.device)[:, None].expand(b, n)
-    touched = 0
     for li, f in enumerate(feats):
         h, w = f.shape[1:3]
         sel = valid & (lvl == li)
         bx = boxes[sel] / strides[li]
-        bi = img[sel]
         half_y = (bx[:, 3] - bx[:, 1]) / (4 * pool)   # half a sample spacing
         half_x = (bx[:, 2] - bx[:, 0]) / (4 * pool)
         y_lo, y_hi = bx[:, 1] + half_y - 0.5, bx[:, 3] - half_y - 0.5
@@ -348,7 +348,23 @@ def roi_bound_ms(feats, boxes, valid, strides, pool):
         r1 = (y_hi[keep].clamp(0, h - 1).floor().long() + 1).clamp(max=h - 1)
         c0 = x_lo[keep].clamp(0, w - 1).floor().long()
         c1 = (x_hi[keep].clamp(0, w - 1).floor().long() + 1).clamp(max=w - 1)
-        bi = bi[keep]
+        yield li, img[sel][keep], r0, r1, c0, c1
+
+
+def roi_bound_ms(feats, boxes, valid, strides, pool):
+    """The least time of one ROIAlign launch on the card: the bytes it must
+    move over the memory rate (its float32 output, the boxes and validity,
+    and the feature pixels its valid boxes' bilinear samples touch, counted
+    once per image and level: the union of the roi_windows rectangles).
+    Its few operations per byte leave it bound by bytes."""
+    import torch
+    b, n = boxes.shape[:2]
+    c = feats[0].shape[-1]
+    touched = 0
+    for li, bi, r0, r1, c0, c1 in roi_windows(feats, boxes, valid, strides,
+                                              pool):
+        f = feats[li]
+        h, w = f.shape[1:3]
         diff = torch.zeros(b, h + 1, w + 1, dtype=torch.int32,
                            device=boxes.device)
         one = torch.ones_like(r0, dtype=torch.int32)
@@ -361,19 +377,15 @@ def roi_bound_ms(feats, boxes, valid, strides, pool):
     return 1e3 * (touched + out_bytes + b * n * 17) / PEAK_BYTES
 
 
-def main_path_kernel_check(model, x, out, phase, timed=False):
-    """Every kernel launch of one bf16 main-path forward, redone on that
-    forward's own inputs through the kernel and through the plain version:
-    each bottleneck stage (backbone_impl "pallas"), and each ROIAlign (its
-    FPN levels with its proposals, its final boxes, and with add_mask the
-    14x14 mask crops). The inputs are not unit-normal here, so the bounds
-    scale with the plain result's largest magnitude. With ``timed``, median
-    CUDA-event times of kernel and plain version per launch, and each
-    launch's bound. Returns {"roi": {...}, "stage": [...]}."""
+def forward_kernel_inputs(model, x, out):
+    """The inputs of every kernel launch of one forward of ``model`` on
+    ``x`` (whose result was ``out``), recomputed: the bottleneck stages
+    (backbone_impl "pallas") as (blocks, x, width, c_out, kernel result),
+    and the ROIAlign launches (the FPN levels with the proposals, with the
+    final boxes, and with add_mask the 14x14 mask crops) as (label, boxes,
+    valid, pool). Returns (stages, feats, strides, roi launches)."""
     import torch
     from object_detection_tracking_tpu_torch.models import resnet as TR
-    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
-    from object_detection_tracking_tpu_torch.ops import roi_align as RA
     cfg = model.config
     h, w = x.shape[1:3]
     hp, wp, fields, valids = model._static_geometry(h, w)
@@ -393,6 +405,27 @@ def main_path_kernel_check(model, x, out, phase, timed=False):
                 *model._rpn_all_levels(p23456), fields, valids, h, w)
     finally:
         TR.fused_bottleneck_stage_cuda = real
+    launches = [("N=%d P=7" % props.shape[1], props, prop_valid, 7),
+                ("N=%d P=7" % cfg.result_per_im, out["final_boxes"],
+                 out["final_valid"], 7)]
+    if cfg.add_mask:
+        launches.append(("N=%d P=14" % cfg.result_per_im, out["final_boxes"],
+                         out["final_valid"], 14))
+    return stages, list(p23456[:4]), cfg.anchor_strides[:4], launches
+
+
+def main_path_kernel_check(model, x, out, phase, timed=False):
+    """Every kernel launch of one bf16 main-path forward, redone on that
+    forward's own inputs through the kernel and through the plain version
+    (forward_kernel_inputs). The inputs are not unit-normal here, so the
+    bounds scale with the plain result's largest magnitude. With
+    ``timed``, per ROIAlign launch: median CUDA-event times of the
+    wrapper's call and of the plain version, the kernel's own device time
+    (torch.profiler), and the launch's bound. Returns {"roi": {...},
+    "stage": [...]}."""
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    stages, feats, strides, launches = forward_kernel_inputs(model, x, out)
     res = {"roi": {}, "stage": []}
     for blocks, xs, width, c_out, y in stages:
         rel = stage_rel(str(model.compute_dtype)[6:], len(blocks))
@@ -406,13 +439,6 @@ def main_path_kernel_check(model, x, out, phase, timed=False):
         log(phase, f"bottleneck stage on the forward's own input "
             f"{tuple(xs.shape)}, {len(blocks)} blocks: max |kernel - plain| "
             f"{err:.4g} (bound {bound:.4g} = {rel:.4g} x max |plain|)")
-    feats, strides = list(p23456[:4]), cfg.anchor_strides[:4]
-    launches = [("N=%d P=7" % props.shape[1], props, prop_valid, 7),
-                ("N=%d P=7" % cfg.result_per_im, out["final_boxes"],
-                 out["final_valid"], 7)]
-    if cfg.add_mask:
-        launches.append(("N=%d P=14" % cfg.result_per_im, out["final_boxes"],
-                         out["final_valid"], 14))
     for label, boxes, valid, pool in launches:
         def kernel():
             return RA.multilevel_roi_align_cuda(feats, boxes, strides, pool,
@@ -434,11 +460,16 @@ def main_path_kernel_check(model, x, out, phase, timed=False):
         msg = ""
         if timed:
             entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
+            entry["device_ms"] = roi_device_ms(kernel)
             entry["bound_ms"] = roi_bound_ms(feats, boxes, valid, strides,
                                              pool)
+            entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
             msg = (f"; kernel {entry['ms']:.4f} ms, plain "
-                   f"{entry['plain_ms']:.4f} ms (median of 15), bound "
-                   f"{entry['bound_ms']:.4f} ms (bytes)")
+                   f"{entry['plain_ms']:.4f} ms (median of 15, CUDA events),"
+                   f" kernel device {entry['device_ms']:.4f} ms "
+                   f"(torch.profiler, mean of 15), bound "
+                   f"{entry['bound_ms']:.4f} ms (bytes), "
+                   f"{entry['bound_share']:.1%} of it")
         res["roi"][label] = entry
         log(phase, f"roi_align on the bf16 forward's own inputs, {label} "
             f"({int(valid.sum())} valid): max |kernel - plain| {err:.3g} "
@@ -700,10 +731,11 @@ def stage_work(n, h, w, c_in, width, elem_bytes):
             kinds)
 
 
-def kind_ms(fn, runs=3):
-    """Device time of fn's bottleneck-stage launches by conv kind (the
-    bf16 kernels' names), per call: torch.profiler over `runs` calls,
-    after one profiled warm-up call."""
+def device_ms(fn, names, runs=3):
+    """Device time per call of fn's kernels whose names hold each of
+    ``names`` ({group: substring}): torch.profiler over `runs` calls, after
+    one profiled warm-up call. Only the kernels' own time: no host
+    preamble, no allocation. Returns {group: ms}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -713,14 +745,19 @@ def kind_ms(fn, runs=3):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-    out = {"1x1": 0.0, "3x3": 0.0}
+    out = dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        for kind, name in (("1x1", "bneck_conv1x1"), ("3x3", "bneck_conv3x3")):
+        for group, name in names.items():
             if name in e.key:
-                out[kind] += e.self_device_time_total / 1e3 / runs
+                out[group] += e.self_device_time_total / 1e3 / runs
     return out
+
+
+def roi_device_ms(fn):
+    """Device time per call of fn's ROIAlign kernel launches (mean of 15)."""
+    return device_ms(fn, {"roi": "roi_align_fwd"}, runs=15)["roi"]
 
 
 def phase_stage():
@@ -790,7 +827,9 @@ def phase_stage():
                 r["ms"], r["plain_ms"], r["cudnn_ms"] = median_ms(
                     [kernel, plain, cudnn])
                 r["by_kind"] = {}
-                for kind, ms in kind_ms(kernel).items():
+                for kind, ms in device_ms(kernel, {
+                        "1x1": "bneck_conv1x1",
+                        "3x3": "bneck_conv3x3"}).items():
                     kf, kb = kinds[kind]
                     r["by_kind"][kind] = {
                         "ms": ms, "tflop_per_s": kf / ms / 1e9,
@@ -824,19 +863,12 @@ def phase_stage():
     return results
 
 
-def phase_actev(tmp):
-    """The CLI's default detector at 1920x1080 with masks and the fused
-    backbone, through process_video (phase 7 of the module note)."""
-    import numpy as np
-    import torch
+def actev_setup(tmp, device):
+    """The CLI's arguments, configuration and random weights for the ActEV
+    path (phase 7 of the module note), writing under ``tmp``."""
     from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
         as cli
-    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
-    from object_detection_tracking_tpu_torch.ops import roi_align as RA
     from object_detection_tracking_tpu_torch.params import init_params
-    from object_detection_tracking_tpu_torch.runtime import DetectionRunner
-
-    device = torch.device("cuda")
     args = cli.get_args([
         "--video_dir", tmp, "--video_lst_file", os.path.join(tmp, "none"),
         "--short_edge_size", str(ACTEV_H), "--max_size", str(ACTEV_W),
@@ -862,6 +894,22 @@ def phase_actev(tmp):
     bias = tree["fastrcnn"]["outputs"]["class"]["b"]
     for name in ("Person", "Vehicle"):
         bias[cfg.classname2id[name]] += 1.0
+    return args, cfg, tree
+
+
+def phase_actev(tmp):
+    """The CLI's default detector at 1920x1080 with masks and the fused
+    backbone, through process_video (phase 7 of the module note)."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.runtime import DetectionRunner
+
+    device = torch.device("cuda")
+    args, cfg, tree = actev_setup(tmp, device)
     t0 = time.perf_counter()
     model = build_model(cfg, tree, device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1041,11 +1089,13 @@ def main():
     roi = actev["check"]["roi"]
     err = max([r[0] for r in kres.values()] + [main_res["roi_err"]]
               + [r["err"] for r in roi.values()])
-    _, k_ms, p_ms, b_ms = kres[(1000, torch.bfloat16)]
-    _, k100, p100, b100 = kres[(100, torch.bfloat16)]
+    _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
+    _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
     bf = [sres[(name, "bfloat16")] for name, *_ in STAGES]
     stage_err = max([r["err"] for r in sres.values()]
                     + actev["check"]["stage"])
+    roi_device = sum(r["device_ms"] for r in roi.values())
+    roi_bound = sum(r["bound_ms"] for r in roi.values())
     kernels = {"kernels": [{
         "name": "roi_align", "route": "cuda",
         "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
@@ -1053,17 +1103,22 @@ def main():
                     "roi_align_pallas.py:138",
         "launches": actev["roi_launches"], "max_abs_err": err,
         "ms": sum(r["ms"] for r in roi.values()),
+        "device_ms": roi_device,
         "plain_ms": sum(r["plain_ms"] for r in roi.values()),
-        "bound_ms": sum(r["bound_ms"] for r in roi.values()),
+        "bound_ms": roi_bound,
+        "bound_share": roi_bound / roi_device,
         "bound_by": "bytes", "library_ms": None,
         "per_launch": roi,
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
-                     "plain_ms_n1000": p_ms, "bound_ms_n1000": b_ms,
-                     "ms_n100": k100, "plain_ms_n100": p100,
+                     "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
+                     "bound_ms_n1000": b_ms, "ms_n100": k100,
+                     "device_ms_n100": d100, "plain_ms_n100": p100,
                      "bound_ms_n100": b100},
         "shapes": "ActEV path, one bf16 forward's own launches (B=8, "
                   "1088x1920 pyramid, C=256): N=1000 P=7, N=100 P=7, "
-                  "N=100 P=14; ms, plain_ms and bound_ms summed over them"},
+                  "N=100 P=14; ms (CUDA events around the wrapper), "
+                  "device_ms (the kernel alone, torch.profiler), plain_ms "
+                  "and bound_ms summed over them"},
         {"name": "bottleneck_stage", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/"
                    "bottleneck_stage.cu",

@@ -1,8 +1,8 @@
 // Multilevel FPN ROIAlign forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel object_detection_tracking_tpu/ops/pallas/
-// roi_align_pallas.py (`_kernel`, launched by `_roi_align_levels` behind
-// `multilevel_roi_align_pallas`). It computes exactly what the plain
+// roi_align_pallas.py (`_kernel` :138, launched by `_roi_align_levels`
+// behind `multilevel_roi_align_pallas`). It computes exactly what the plain
 // PyTorch `multilevel_roi_align` in ops/roi_align.py computes: per ROI, the
 // canonical FPN level (passed in as int32, computed by the wrapper with the
 // shared `fpn_map_rois_to_levels`, so the two versions cannot disagree at a
@@ -18,22 +18,41 @@
 // The Pallas kernel also rounds its y-contraction back to bf16
 // (:272-275); here every sum stays in float32.
 //
-// What bounds it on the H100: scattered 4-neighbour reads. Each sample
-// reads four C-channel pixel rows at data-dependent addresses; at the main
-// path's shapes (8 x 1000 ROIs, P = 7, C = 256, bf16) that is 196 samples
-// x 4 rows x 512 B = 400 KB of loads per ROI, 3.2 GB per call, almost all
-// of it hits in L1/L2 because neighbouring samples share rows; the DRAM
-// traffic is the 400 MB of float32 output. The design keeps the reads
-// coalesced and the arithmetic trivial:
-//   * one block per (ROI, output row); its threads run over the contiguous
-//     channel axis, so every neighbour read is one contiguous row segment
-//     per warp, and every output write is coalesced;
-//   * the sample coordinates of the block (2P columns, 2 rows) are computed
-//     once into shared memory, with IEEE round-to-nearest intrinsics and no
-//     FMA contraction, so they round exactly as the plain PyTorch ops do;
-//   * an invalid ROI's blocks write zeros and exit before any read.
-// Later work (not here): stage a ROI's window in shared memory with
-// cp.async/TMA, sort ROIs by level, vector loads of 2-8 channels a thread.
+// What bounds it on the H100: bytes. The least traffic is the float32
+// output (8 x 1000 x 7 x 7 x 256 x 4 B = 401 MB at the main path's proposal
+// launch) and the feature pixels the valid boxes touch, each moved once.
+// Beyond that the kernel gathers: every bin reads its 16 neighbour pixel
+// rows (8 KB at C = 256 bf16), almost all of them hits in L1 or L2, since
+// neighbouring samples and overlapping boxes share pixels.
+//
+// Why the Pallas design is not carried over: it copies each ROI's whole
+// window into VMEM by DMA and contracts it with hat-weight matrices. On
+// Hopper the window does not fit: a p2 box spans up to ~29 x 29 pixels of
+// its level, 430 KB at C = 256 bf16, against the 227 KB of shared memory a
+// block can use; and the matmul form stood in for gathers that the TPU's
+// scalar core could not issue. What carries over is the goal: read each
+// ROI's window once, close together in time. The design:
+//   * one block per ROI, in the order given (image-major on the main path),
+//     so the rows of a window are read together and an image's overlapping
+//     proposals are in flight together; its 8 warps stride over the P x P
+//     bins (49 bins balance over 8 warps; P rows would leave one idle);
+//   * lane-owned sample coordinates: lane i computes x- and y-sample i (and
+//     i + 32, for 2P up to 64) with IEEE round-to-nearest intrinsics in the
+//     plain ops' order, so no sample crosses the in-map boundary differently
+//     from the plain version; a bin takes its four samples from their lanes
+//     by __shfl_sync: no shared table, no barrier;
+//   * 16-byte gathers: a lane owns 8 consecutive bf16 channels (4 float32),
+//     so at C = 256 bf16 one warp instruction reads a whole 512-byte pixel
+//     row; all 16 neighbour loads of a bin are issued read-only
+//     (ld.global.nc) before its arithmetic, which runs in float32
+//     registers. Where C is not a multiple of the vector width, or a level
+//     does not start on 16 bytes, the same kernel runs its scalar path, one
+//     channel per lane and load;
+//   * streaming stores (st.global.cs, 16 bytes on the vector path), so the
+//     output does not evict the features from L2; an invalid ROI's block
+//     writes its P x P x C zeros the same way and reads nothing;
+//   * no shared memory: the carveout prefers L1, which holds the pixels that
+//     a bin's samples and the next bins share.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (object_detection_tracking_tpu_torch/native.py).
@@ -41,11 +60,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSamples = 64;  // 2P <= 64: P <= 32 (checked by the wrapper)
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Levels {
   const void* ptr[4];
@@ -54,24 +75,16 @@ struct Levels {
   int stride[4];
 };
 
-__device__ __forceinline__ float load(const float* p, size_t i) {
-  return __ldg(p + i);
-}
-
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// One sample coordinate `a` on an axis of `extent` pixels.
+// One sample coordinate `a` on an axis of `extent` pixels: its lower
+// neighbour (clamped into the map), or -1 when `a` lies outside [0, extent-1]
+// and the sample is 0; and its fraction past floor(a).
 __device__ __forceinline__ void setup_sample(float a, int extent, int* lo,
-                                             int* hi, float* frac, bool* in) {
-  *in = (a >= 0.f) && (a <= (float)(extent - 1));
+                                             float* frac) {
+  const bool in = (a >= 0.f) && (a <= (float)(extent - 1));
   const float f0 = floorf(a);
   *frac = __fsub_rn(a, f0);
-  int l = (int)f0;
-  l = min(max(l, 0), extent - 1);
-  *lo = l;
-  *hi = min(l + 1, extent - 1);
+  const int l = min(max((int)f0, 0), extent - 1);
+  *lo = in ? l : -1;
 }
 
 // fpcoor sample i of a crop of `size` samples over [lo, hi] (box in level
@@ -83,73 +96,196 @@ __device__ __forceinline__ float sample_coord(float lo, float hi, int size,
   return __fsub_rn(__fadd_rn(lo, __fmul_rn(spacing, (float)i + 0.5f)), 0.5f);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) roi_align_fwd_kernel(
+// kVec channels of T, read by one load instruction, and channel j of them
+// as float (bf16 -> float is exact: the bits go to the top half).
+template <typename T, int kVec>
+struct Chunk;
+
+template <>
+struct Chunk<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ float get(const Raw& r, int j) {
+    const unsigned w = j < 2 ? r.x : j < 4 ? r.y : j < 6 ? r.z : r.w;
+    return __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  static __device__ __forceinline__ float get(const Raw& r, int) {
+    return __uint_as_float((unsigned)r << 16);
+  }
+};
+
+template <>
+struct Chunk<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ float get(const Raw& r, int j) {
+    return j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w;
+  }
+};
+
+template <>
+struct Chunk<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float get(const Raw& r, int) { return r; }
+};
+
+// kVec consecutive floats to p with streaming (evict-first) stores: 16
+// bytes at a time on the vector path.
+template <int kVec>
+__device__ __forceinline__ void store_cs(float* p, const float (&v)[kVec]) {
+  if constexpr (kVec == 1) {
+    __stcs(p, v[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; i += 4) {
+      __stcs(reinterpret_cast<float4*>(p + i),
+             make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
+    }
+  }
+}
+
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads, 2) roi_align_fwd_kernel(
     Levels lv, const float* __restrict__ boxes, const int* __restrict__ levels,
     const bool* __restrict__ valid, float* __restrict__ out,
     int rois_per_image, int c, int pool) {
+  using Ch = Chunk<T, kVec>;
   const int roi = blockIdx.x;
-  const int py = blockIdx.y;
-  float* dst = out + ((size_t)roi * pool + py) * (size_t)pool * c;
+  const int bins = pool * pool;
+  float* dst = out + (size_t)roi * bins * c;
   if (valid != nullptr && !valid[roi]) {
-    for (int i = threadIdx.x; i < pool * c; i += blockDim.x) dst[i] = 0.f;
+    const float zero[kVec] = {};
+    for (int i = threadIdx.x * kVec; i < bins * c; i += kThreads * kVec) {
+      store_cs<kVec>(dst + i, zero);
+    }
     return;
   }
 
-  __shared__ int sx_lo[kMaxSamples], sx_hi[kMaxSamples];
-  __shared__ float sx_f[kMaxSamples];
-  __shared__ bool sx_in[kMaxSamples];
-  __shared__ int sy_lo[2], sy_hi[2];
-  __shared__ float sy_f[2];
-  __shared__ bool sy_in[2];
-
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int l = levels[roi];
   const int h = lv.h[l];
   const int w = lv.w[l];
   const float s = (float)lv.stride[l];
   const float* box = boxes + (size_t)roi * 4;
+  const float bx0 = __fdiv_rn(__ldg(box + 0), s);
+  const float by0 = __fdiv_rn(__ldg(box + 1), s);
+  const float bx1 = __fdiv_rn(__ldg(box + 2), s);
+  const float by1 = __fdiv_rn(__ldg(box + 3), s);
   const int size2 = 2 * pool;
-  const int t = threadIdx.x;
-  if (t < size2) {
-    const float a = sample_coord(__fdiv_rn(box[0], s), __fdiv_rn(box[2], s),
-                                 size2, t);
-    setup_sample(a, w, &sx_lo[t], &sx_hi[t], &sx_f[t], &sx_in[t]);
-  } else if (t < size2 + 2) {
-    const int k = t - size2;
-    const float a = sample_coord(__fdiv_rn(box[1], s), __fdiv_rn(box[3], s),
-                                 size2, 2 * py + k);
-    setup_sample(a, h, &sy_lo[k], &sy_hi[k], &sy_f[k], &sy_in[k]);
+  // this lane's samples i = lane and lane + 32 on each axis (those past
+  // 2P are never asked for)
+  int xs_lo[2], ys_lo[2];
+  float xs_f[2], ys_f[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = lane + 32 * k;
+    setup_sample(sample_coord(bx0, bx1, size2, i), w, &xs_lo[k], &xs_f[k]);
+    setup_sample(sample_coord(by0, by1, size2, i), h, &ys_lo[k], &ys_f[k]);
   }
-  __syncthreads();
 
-  const T* feat =
-      static_cast<const T*>(lv.ptr[l]) + (size_t)(roi / rois_per_image) * h * w * c;
-  for (int px = 0; px < pool; ++px) {
-    for (int ch = t; ch < c; ch += blockDim.x) {
-      float acc = 0.f;
+  const T* feat = static_cast<const T*>(lv.ptr[l]) +
+                  (size_t)(roi / rois_per_image) * h * w * c;
+  for (int bin = warp; bin < bins; bin += kWarps) {   // warp-uniform
+    const int py = bin / pool;
+    const int px = bin - py * pool;
+    // the bin's 2 y- and 2 x-samples, from the lanes that own them: the
+    // neighbours' row offsets y * w and columns, and the bilinear weights
+    int row[2][2], col[2][2];
+    float wy[2][2], wx[2][2];
+    bool yin[2], xin[2];
 #pragma unroll
-      for (int ky = 0; ky < 2; ++ky) {
-        if (!sy_in[ky]) continue;
-        const size_t r0 = (size_t)sy_lo[ky] * w;
-        const size_t r1 = (size_t)sy_hi[ky] * w;
-        const float fy = sy_f[ky];
+    for (int k = 0; k < 2; ++k) {
+      const int sy = 2 * py + k;
+      const int sx = 2 * px + k;
+      const int ly = __shfl_sync(kFullMask, sy < 32 ? ys_lo[0] : ys_lo[1],
+                                 sy & 31);
+      const float fy = __shfl_sync(kFullMask, sy < 32 ? ys_f[0] : ys_f[1],
+                                   sy & 31);
+      const int lx = __shfl_sync(kFullMask, sx < 32 ? xs_lo[0] : xs_lo[1],
+                                 sx & 31);
+      const float fx = __shfl_sync(kFullMask, sx < 32 ? xs_f[0] : xs_f[1],
+                                   sx & 31);
+      yin[k] = ly >= 0;
+      xin[k] = lx >= 0;
+      const int y0 = max(ly, 0);
+      const int x0 = max(lx, 0);
+      row[k][0] = y0 * w;
+      row[k][1] = min(y0 + 1, h - 1) * w;
+      col[k][0] = x0;
+      col[k][1] = min(x0 + 1, w - 1);
+      // the 2x2 mean's 1/4 goes into the y weights (a power of two: exact)
+      wy[k][0] = 0.25f * (1.f - fy);
+      wy[k][1] = 0.25f * fy;
+      wx[k][0] = 1.f - fx;
+      wx[k][1] = fx;
+    }
+
+    float* o = dst + (size_t)bin * c;
+    for (int c0 = lane * kVec; c0 < c; c0 += 32 * kVec) {
+      // all 16 neighbour loads of the bin first: sample (ky, kx), corner
+      // (ry, rx); a sample outside the map reads nothing and adds 0
+      typename Ch::Raw raw[16];
 #pragma unroll
-        for (int kx = 0; kx < 2; ++kx) {
-          const int xs = 2 * px + kx;
-          if (!sx_in[xs]) continue;
-          const float fx = sx_f[xs];
-          const float v00 = load(feat, (r0 + sx_lo[xs]) * c + ch);
-          const float v01 = load(feat, (r0 + sx_hi[xs]) * c + ch);
-          const float v10 = load(feat, (r1 + sx_lo[xs]) * c + ch);
-          const float v11 = load(feat, (r1 + sx_hi[xs]) * c + ch);
-          const float top = v00 * (1.f - fx) + v01 * fx;
-          const float bot = v10 * (1.f - fx) + v11 * fx;
-          acc += top * (1.f - fy) + bot * fy;
+      for (int q = 0; q < 16; ++q) {
+        const int ky = q >> 3, kx = (q >> 2) & 1, ry = (q >> 1) & 1,
+                  rx = q & 1;
+        raw[q] = (yin[ky] && xin[kx])
+                     ? Ch::load(feat + (size_t)(row[ky][ry] + col[kx][rx]) * c
+                                + c0)
+                     : typename Ch::Raw{};
+      }
+      float acc[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int ky = q >> 3, kx = (q >> 2) & 1, ry = (q >> 1) & 1,
+                  rx = q & 1;
+        const float wt = wy[ky][ry] * wx[kx][rx];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          acc[j] = fmaf(Ch::get(raw[q], j), wt, acc[j]);
         }
       }
-      dst[(size_t)px * c + ch] = acc * 0.25f;
+      store_cs<kVec>(o + c0, acc);
     }
   }
+}
+
+// The kernel holds no shared memory: give the SM's 256 KB to L1. Set once
+// per instantiation, before its first launch.
+template <typename T, int kVec>
+cudaError_t launch(const dim3& grid, cudaStream_t st, const Levels& lv,
+                   const float* b, const int* lvl, const bool* v, float* o,
+                   int rois_per_image, int c, int pool) {
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      roi_align_fwd_kernel<T, kVec>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxL1);
+  if (carveout != cudaSuccess) return carveout;
+  roi_align_fwd_kernel<T, kVec><<<grid, kThreads, 0, st>>>(
+      lv, b, lvl, v, o, rois_per_image, c, pool);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -157,7 +293,10 @@ __global__ void __launch_bounds__(kThreads) roi_align_fwd_kernel(
 // features f0..f3: NHWC [num_images, h_l, w_l, channels], float32 or bf16.
 // boxes [num_images * rois_per_image, 4] float32 image coords; levels int32
 // 0..3; valid bool or NULL (all valid); out [rois, pool, pool, channels]
-// float32. Launches on `stream`, returns cudaGetLastError().
+// float32. One block per ROI. The vector path needs channels a multiple of
+// 8 (bf16) or 4 (float32) and every level and `out` on 16 bytes; anything
+// else runs the scalar path. Launches on `stream`, returns the launch's
+// cudaError_t.
 extern "C" int roi_align_forward(
     const void* f0, const void* f1, const void* f2, const void* f3,
     int h0, int w0, int h1, int w1, int h2, int w2, int h3, int w3,
@@ -170,18 +309,26 @@ extern "C" int roi_align_forward(
   lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
   lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
   lv.stride[0] = s0; lv.stride[1] = s1; lv.stride[2] = s2; lv.stride[3] = s3;
-  const dim3 grid(num_images * rois_per_image, pool);
+  const dim3 grid(num_images * rois_per_image);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(boxes);
   const int* lvl = static_cast<const int*>(levels);
   const bool* v = static_cast<const bool*>(valid);
   float* o = static_cast<float*>(out);
+  const bool vec = aligned16(f0) && aligned16(f1) && aligned16(f2) &&
+                   aligned16(f3) && aligned16(out) &&
+                   channels % (is_bf16 ? 8 : 4) == 0;
+  cudaError_t err;
   if (is_bf16) {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        lv, b, lvl, v, o, rois_per_image, channels, pool);
+    err = vec ? launch<__nv_bfloat16, 8>(grid, st, lv, b, lvl, v, o,
+                                         rois_per_image, channels, pool)
+              : launch<__nv_bfloat16, 1>(grid, st, lv, b, lvl, v, o,
+                                         rois_per_image, channels, pool);
   } else {
-    roi_align_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        lv, b, lvl, v, o, rois_per_image, channels, pool);
+    err = vec ? launch<float, 4>(grid, st, lv, b, lvl, v, o, rois_per_image,
+                                 channels, pool)
+              : launch<float, 1>(grid, st, lv, b, lvl, v, o, rois_per_image,
+                                 channels, pool);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -147,7 +147,7 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 12 + [_P] * 4 + [_I] * 5 + [_P]
-_MAX_POOL = 32   # the kernel's shared sample tables hold 2P <= 64 entries
+_MAX_POOL = 32   # 2P <= 64 samples per axis: two per lane of a warp
 
 
 def _cuda_lib():
@@ -169,7 +169,11 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
     """FPN ROIAlign through the hand-written CUDA kernel; same arguments and
     result as ``multilevel_roi_align``. A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel on the current stream (no sync) or
-    raises. ``multilevel_roi_align_cuda.launches`` counts the launches."""
+    raises. Any C is taken: the kernel reads 16 bytes per lane where C is a
+    multiple of 8 (bf16) or 4 (float32) and every level starts on 16 bytes,
+    and runs its scalar path otherwise (for example a feature view whose
+    storage offset leaves it off 16 bytes).
+    ``multilevel_roi_align_cuda.launches`` counts the launches."""
     if boxes.device.type == "cpu":
         return multilevel_roi_align(features, boxes, strides, output_size,
                                     valid=valid, levels=levels)

@@ -37,6 +37,7 @@ def _sources():
             if name.endswith((".py", ".cu", ".cpp", ".h", ".cuh")):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "torch_roi_align_ab.py")
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():

@@ -51,27 +51,83 @@ def inputs(dev, dtype, b=2, n=300, c=256, h=256, w=384, seed=11):
     y0 = rng.uniform(-5, h, (b, n))
     boxes = np.stack([x0, y0, np.minimum(x0 + s * np.sqrt(ar), w),
                       np.minimum(y0 + s / np.sqrt(ar), h)], -1)
-    boxes[0, :4] = [[0, 0, 0, 0], [0, 0, w, h], [w - 4, h - 4, w, h],
-                    [50, 20, 50, 40]]
+    edge = [[0, 0, 0, 0], [0, 0, w, h], [w - 4, h - 4, w, h],
+            [50, 20, 50, 40]]
+    boxes[0, :4] = edge[:n]
     valid = rng.rand(b, n) > 0.3
     return (feats, torch.from_numpy(boxes.astype(np.float32)).to(dev),
             torch.from_numpy(valid).to(dev))
 
 
+def p2_edge_inputs(dev, dtype, n, b=2, h=1088, w=1920, seed=12):
+    """The ActEV pyramid (1088x1920, C=256) with n boxes small enough for
+    p2: half of aspect 5, half of aspect 1/5, their centres spread 10%
+    past the image on every side, so that many cross the map's edge."""
+    rng = np.random.RandomState(seed)
+    feats = [torch.from_numpy(rng.randn(b, h >> (i + 2), w >> (i + 2), 256)
+                              .astype(np.float32)).to(dev, dtype)
+             for i in range(4)]
+    side = np.exp(rng.uniform(np.log(8), np.log(100), (b, n)))
+    ar = np.where(np.arange(n) % 2 == 0, 5.0, 0.2)
+    bw, bh = side * np.sqrt(ar), side / np.sqrt(ar)
+    cx = rng.uniform(-0.1 * w, 1.1 * w, (b, n))
+    cy = rng.uniform(-0.1 * h, 1.1 * h, (b, n))
+    boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], -1)
+    valid = rng.rand(b, n) > 0.3
+    return (feats, torch.from_numpy(boxes.astype(np.float32)).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def off16(t):
+    """t's values in a contiguous view that starts one element past a
+    16-byte boundary (a storage offset)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("pool,n", [(7, 300), (7, 5), (14, 37)])
-def test_roi_align_kernel_matches_plain(cuda, dtype, pool, n):
-    feats, boxes, valid = inputs(cuda, getattr(torch, dtype), n=n)
+@pytest.mark.parametrize("pool,n,case", [
+    (7, 300, "c256"), (7, 5, "c256"), (14, 37, "c256"),
+    (7, 40, "c64"),          # ROADMAP B4's width (EfficientDet)
+    (7, 40, "c36"),          # C off the vector width: the scalar path
+    (32, 6, "c256"),         # the largest pool: two samples per lane
+    (7, 1, "c256"),          # one ROI
+    (14, 9, "all_invalid"),  # exact zeros; NaN features are never read
+    (7, 64, "p2_edge"),      # aspect-5 boxes over p2's edge at 1088x1920
+    (7, 50, "off16"),        # levels off 16 bytes: the scalar path
+])
+def test_roi_align_kernel_matches_plain(cuda, dtype, pool, n, case):
+    dt = getattr(torch, dtype)
+    if case == "p2_edge":
+        feats, boxes, valid = p2_edge_inputs(cuda, dt, n)
+        lvl = RA.fpn_map_rois_to_levels(boxes)
+        assert (lvl == 0).float().mean().item() >= 0.9
+        crosses = (boxes[..., :2] < 0).any(-1) | (boxes[..., 2] > 1920) \
+            | (boxes[..., 3] > 1088)
+        assert crosses.float().mean().item() >= 0.1
+    else:
+        c = {"c64": 64, "c36": 36}.get(case, 256)
+        feats, boxes, valid = inputs(cuda, dt, n=n, c=c)
+    if case == "off16":
+        feats = [off16(f) for f in feats]
+        assert all(f.data_ptr() % 16 != 0 for f in feats)
+    if case == "all_invalid":
+        valid = torch.zeros_like(valid)
+        feats = [torch.full_like(f, float("nan")) for f in feats]
     before = RA.multilevel_roi_align_cuda.launches
     got = RA.multilevel_roi_align_cuda(feats, boxes, STRIDES, pool,
                                        valid=valid)
     torch.cuda.synchronize()
     assert RA.multilevel_roi_align_cuda.launches == before + 1
     ref = RA.multilevel_roi_align(feats, boxes, STRIDES, pool, valid=valid)
-    assert got.shape == ref.shape == (2, n, pool, pool, 256)
+    assert got.shape == ref.shape == (2, n, pool, pool, feats[0].shape[-1])
     assert (got - ref).abs().max().item() <= 1e-4
     assert (got[~valid] == 0).all()
+    if case == "all_invalid":
+        return
     full = RA.multilevel_roi_align_cuda(feats, boxes, STRIDES, pool)
     ref_full = RA.multilevel_roi_align(feats, boxes, STRIDES, pool)
     assert (full - ref_full).abs().max().item() <= 1e-4
