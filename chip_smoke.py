@@ -48,6 +48,19 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                version, each ROIAlign launch timed as in phase 3
   8. profile   that path: host wall of one forward with the fused and the
                unfused backbone, device time by kernel kind
+  9. train     the training entry point (cli/main.py train, through
+               mode_train) with the train CLI's defaults: R101-FPN v4 at
+               1920x1080 with the mask head, bf16, B=2, freeze=2, random
+               weights from seed 0 (through --load_from), 8 steps on one
+               repeated in-memory batch at a constant learning rate,
+               checkpoints; every loss finite and the loss falling; B1
+               (forward) and B1b (backward) must each launch exactly twice
+               per step; the step's time split (forward+loss, backward,
+               optimizer) by CUDA events and the peak device memory; B1
+               and B1b redone on a step's own inputs against the plain
+               version and its autograd, timed as in phase 3; one f32 step
+               with the kernels against the plain ROIAlign's autograd
+               (losses, every gradient leaf)
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -92,6 +105,20 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # rounds its coordinates exactly like the plain ops); only the order of
 # the bilinear and 2x2 sums differs, ~1e-6 on unit-normal features
 KERNEL_ATOL = 1e-4
+# training phase: full width, B=2, steps on one repeated batch, and the
+# timed steps after them
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_TIMED = 2, 8, 5
+# B1b vs plain autograd, as a share of the level's max |plain|: the same
+# float32 products, added in another order (atomics); see
+# tests/test_torch_kernels_cuda.py
+B1B_REL = 1e-5
+# one f32 train step, trainable kernels vs the plain ROIAlign's autograd:
+# the losses agree to float32 rounding; the gradients differ only by the
+# order of B1b's float32 additions, which can flip a relu input or max-pool
+# tie within ~1e-6 of zero upstream (tests/test_torch_train_grads.py sees
+# such flips move a leaf by up to 7.2e-3 of its max between the port and
+# JAX on the CPU; on an H100 they have moved one by 6.93e-5)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
 # f32 forward, ROIAlign kernel vs plain: share of the plain run's
 # detections matched by the kernel run (same label, box within 0.5 px).
 # Sums ~1e-6 apart can swap two detections' ranks; only a swap across the
@@ -351,14 +378,13 @@ def roi_windows(feats, boxes, valid, strides, pool):
         yield li, img[sel][keep], r0, r1, c0, c1
 
 
-def roi_bound_ms(feats, boxes, valid, strides, pool):
-    """The least time of one ROIAlign launch on the card: the bytes it must
-    move over the memory rate (its float32 output, the boxes and validity,
-    and the feature pixels its valid boxes' bilinear samples touch, counted
-    once per image and level: the union of the roi_windows rectangles).
-    Its few operations per byte leave it bound by bytes."""
+def roi_touched_bytes(feats, boxes, valid, strides, pool, elem_bytes=None):
+    """Bytes of the feature pixels that the valid boxes' bilinear samples
+    touch, counted once per image and level (the union of the roi_windows
+    rectangles), at ``elem_bytes`` per channel (the features' own by
+    default)."""
     import torch
-    b, n = boxes.shape[:2]
+    b = boxes.shape[0]
     c = feats[0].shape[-1]
     touched = 0
     for li, bi, r0, r1, c0, c1 in roi_windows(feats, boxes, valid, strides,
@@ -372,9 +398,54 @@ def roi_bound_ms(feats, boxes, valid, strides, pool):
                              (r1 + 1, c1 + 1, 1)):
             diff.index_put_((bi, rr, cc), sign * one, accumulate=True)
         cover = diff.cumsum(1).cumsum(2)[:, :h, :w] > 0
-        touched += int(cover.sum().item()) * c * f.element_size()
+        touched += int(cover.sum().item()) * c * (elem_bytes
+                                                  or f.element_size())
+    return touched
+
+
+def roi_bound_ms(feats, boxes, valid, strides, pool):
+    """The least time of one ROIAlign launch on the card: the bytes it must
+    move over the memory rate (its float32 output, the boxes and validity,
+    and the feature pixels its valid boxes' bilinear samples touch, counted
+    once per image and level: roi_touched_bytes). Its few operations per
+    byte leave it bound by bytes."""
+    b, n = boxes.shape[:2]
+    c = feats[0].shape[-1]
+    touched = roi_touched_bytes(feats, boxes, valid, strides, pool)
     out_bytes = b * n * pool * pool * c * 4
     return 1e3 * (touched + out_bytes + b * n * 17) / PEAK_BYTES
+
+
+def roi_bwd_bound_ms(feats, boxes, strides, pool):
+    """The least time of one ROIAlign backward launch (B1b), the larger of
+    its bytes and its operations: grad_out read once (float32), the boxes
+    and levels read once, every gradient element written once in the
+    features' dtype, over the memory rate; one multiply and one add per
+    channel for each of the 4 neighbours of the 4 samples of every bin,
+    over the float32 peak. Bound by bytes at the training shapes."""
+    b, n = boxes.shape[:2]
+    c = feats[0].shape[-1]
+    elems = sum(f.numel() for f in feats)
+    nbytes = (b * n * pool * pool * c * 4 + b * n * 20
+              + elems * feats[0].element_size())
+    flops = 2 * b * n * pool * pool * 16 * c
+    return 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS)
+
+
+def roi_bwd_design_ms(feats, boxes, strides, pool):
+    """The bytes that B1b's design adds to the bound (roi_bwd_bound_ms),
+    over the memory rate: the float32 workspace zeroed, each workspace pixel
+    that the boxes' samples touch read and written once more by the
+    scatter's atomics, and for bf16 features the workspace read again by
+    the cast. Not a bound of the function: another design (bf16 atomics,
+    or a gather by pixel) need not move them."""
+    import torch
+    b, n = boxes.shape[:2]
+    valid = torch.ones(b, n, dtype=torch.bool, device=boxes.device)
+    elems = sum(f.numel() for f in feats)
+    touched = roi_touched_bytes(feats, boxes, valid, strides, pool, 4)
+    cast = 4 * elems if feats[0].dtype != torch.float32 else 0
+    return 1e3 * (4 * elems + 2 * touched + cast) / PEAK_BYTES
 
 
 def forward_kernel_inputs(model, x, out):
@@ -414,6 +485,56 @@ def forward_kernel_inputs(model, x, out):
     return stages, list(p23456[:4]), cfg.anchor_strides[:4], launches
 
 
+def check_roi_launch(phase, label, feats, strides, boxes, valid, pool,
+                     timed):
+    """One ROIAlign launch redone on its own inputs through the kernel and
+    the plain version; the bound scales with the plain result's largest
+    magnitude. With ``timed``: median CUDA-event times of the wrapper's
+    call and of the plain version, the kernel's own device time
+    (torch.profiler), and the launch's bound. Returns a dict."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+
+    def kernel():
+        return RA.multilevel_roi_align_cuda(feats, boxes, strides, pool,
+                                            valid=valid)
+
+    def plain():
+        return RA.multilevel_roi_align(feats, boxes, strides, pool,
+                                       valid=valid)
+    got = kernel()
+    ref = plain()
+    err = (got - ref).abs().max().item()
+    bound = KERNEL_ATOL * max(1.0, ref.abs().max().item())
+    if not err <= bound:
+        raise AssertionError(f"{phase} roi_align {label}: max |kernel - "
+                             f"plain| {err} > {bound}")
+    if valid is not None and not (got[~valid] == 0).all():
+        raise AssertionError(f"{phase} roi_align: invalid slots not 0")
+    entry = {"err": err}
+    msg = ""
+    if timed:
+        entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
+        entry["device_ms"] = roi_device_ms(kernel)
+        entry["bound_ms"] = roi_bound_ms(
+            feats, boxes, torch.ones(boxes.shape[:2], dtype=torch.bool,
+                                     device=boxes.device)
+            if valid is None else valid, strides, pool)
+        entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
+        msg = (f"; kernel {entry['ms']:.4f} ms, plain "
+               f"{entry['plain_ms']:.4f} ms (median of 15, CUDA events),"
+               f" kernel device {entry['device_ms']:.4f} ms "
+               f"(torch.profiler, mean of 15), bound "
+               f"{entry['bound_ms']:.4f} ms (bytes), "
+               f"{entry['bound_share']:.1%} of it")
+    n_valid = boxes.shape[0] * boxes.shape[1] if valid is None \
+        else int(valid.sum())
+    log(phase, f"roi_align on the {phase} path's own inputs, {label} "
+        f"({n_valid} valid): max |kernel - plain| {err:.3g} "
+        f"(bound {bound:.3g} = {KERNEL_ATOL} x max |plain|){msg}")
+    return entry
+
+
 def main_path_kernel_check(model, x, out, phase, timed=False):
     """Every kernel launch of one bf16 main-path forward, redone on that
     forward's own inputs through the kernel and through the plain version
@@ -424,7 +545,6 @@ def main_path_kernel_check(model, x, out, phase, timed=False):
     (torch.profiler), and the launch's bound. Returns {"roi": {...},
     "stage": [...]}."""
     from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
-    from object_detection_tracking_tpu_torch.ops import roi_align as RA
     stages, feats, strides, launches = forward_kernel_inputs(model, x, out)
     res = {"roi": {}, "stage": []}
     for blocks, xs, width, c_out, y in stages:
@@ -440,40 +560,8 @@ def main_path_kernel_check(model, x, out, phase, timed=False):
             f"{tuple(xs.shape)}, {len(blocks)} blocks: max |kernel - plain| "
             f"{err:.4g} (bound {bound:.4g} = {rel:.4g} x max |plain|)")
     for label, boxes, valid, pool in launches:
-        def kernel():
-            return RA.multilevel_roi_align_cuda(feats, boxes, strides, pool,
-                                                valid=valid)
-
-        def plain():
-            return RA.multilevel_roi_align(feats, boxes, strides, pool,
-                                           valid=valid)
-        got = kernel()
-        ref = plain()
-        err = (got - ref).abs().max().item()
-        bound = KERNEL_ATOL * max(1.0, ref.abs().max().item())
-        if not err <= bound:
-            raise AssertionError(f"{phase} roi_align {label}: max |kernel - "
-                                 f"plain| {err} > {bound}")
-        if not (got[~valid] == 0).all():
-            raise AssertionError(f"{phase} roi_align: invalid slots not 0")
-        entry = {"err": err}
-        msg = ""
-        if timed:
-            entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
-            entry["device_ms"] = roi_device_ms(kernel)
-            entry["bound_ms"] = roi_bound_ms(feats, boxes, valid, strides,
-                                             pool)
-            entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
-            msg = (f"; kernel {entry['ms']:.4f} ms, plain "
-                   f"{entry['plain_ms']:.4f} ms (median of 15, CUDA events),"
-                   f" kernel device {entry['device_ms']:.4f} ms "
-                   f"(torch.profiler, mean of 15), bound "
-                   f"{entry['bound_ms']:.4f} ms (bytes), "
-                   f"{entry['bound_share']:.1%} of it")
-        res["roi"][label] = entry
-        log(phase, f"roi_align on the bf16 forward's own inputs, {label} "
-            f"({int(valid.sum())} valid): max |kernel - plain| {err:.3g} "
-            f"(bound {bound:.3g} = {KERNEL_ATOL} x max |plain|){msg}")
+        res["roi"][label] = check_roi_launch(phase, label, feats, strides,
+                                             boxes, valid, pool, timed)
     return res
 
 
@@ -1022,6 +1110,321 @@ def phase_actev(tmp):
     return model, unfused, x, res
 
 
+class MemoryBatches:
+    """One training batch in memory, yielded ``steps`` times per epoch:
+    DetectionTrainDataset's ``batches`` interface, for a machine with no
+    cv2 and no files."""
+
+    def __init__(self, batch, steps):
+        self.batch = batch
+        self.num_samples = steps * batch[0].shape[0]
+
+    def batches(self, epochs=1):
+        for _ in range(self.num_samples // self.batch[0].shape[0] * epochs):
+            yield self.batch
+
+
+def train_batch(cfg, max_gt, b=TRAIN_BATCH, seed=2):
+    """b synthetic 1920x1080 BGR frames (SyntheticVideo's moving
+    rectangles) with their rectangles as gt: boxes padded to ``max_gt``,
+    Person and Vehicle labels in turn, box-local 28x28 masks (a rectangle
+    fills its box). Returns numpy (images, gt_boxes, gt_labels, gt_valid,
+    gt_masks)."""
+    import numpy as np
+    video = SyntheticVideo(b, seed=seed, h=ACTEV_H, w=ACTEV_W)
+    images = np.stack([video.read()[1] for _ in range(b)])
+    ids = [cfg.classname2id["Person"], cfg.classname2id["Vehicle"]]
+    boxes = np.zeros((b, max_gt, 4), np.float32)
+    labels = np.zeros((b, max_gt), np.int32)
+    valid = np.zeros((b, max_gt), bool)
+    for i in range(b):
+        for j, (x0, y0, vx, vy, w, h, _) in enumerate(video.objs):
+            x = int(x0 + vx * i) % (ACTEV_W - w)
+            y = int(y0 + vy * i) % (ACTEV_H - h)
+            boxes[i, j] = (x, y, x + w, y + h)
+            labels[i, j] = ids[j % 2]
+            valid[i, j] = True
+    masks = np.ones((b, max_gt, 28, 28), np.float32)
+    return images, boxes, labels, valid, masks
+
+
+def leaf_shares(got, ref):
+    """Per parameter leaf: max |got - ref| over the leaf's max |ref|; a
+    leaf that ref gives exactly zero must be zero in got (share 0 then)."""
+    shares = {}
+    for name, r in ref.items():
+        g = got[name]
+        scale = r.abs().max().item()
+        if scale == 0:
+            if g.abs().max().item() != 0:
+                raise AssertionError(f"train f32: {name} has a gradient "
+                                     f"where the plain step has none")
+            shares[name] = 0.0
+        else:
+            shares[name] = (g - r).abs().max().item() / scale
+    return shares
+
+
+def phase_train(tmp):
+    """The port's training entry point (cli/main.py train) at full width:
+    R101-FPN v4 (the train CLI's defaults) at 1920x1080 with the mask head,
+    bf16, B=2, freeze=2, random weights from seed 0 with the 0.2 BN-gamma
+    scaling (through --load_from), one repeated in-memory batch at a
+    constant learning rate. Then one f32 step with the trainable ROIAlign
+    kernels against the plain ROIAlign's autograd on the same batch and
+    draws, B1 and B1b redone on a step's own inputs, and the step's time
+    split by CUDA events."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import main as train_cli
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.params import (init_params,
+                                                            save_npz_tree)
+
+    device = torch.device("cuda")
+    args = train_cli.get_args([
+        "train", "--add_mask", "--im_batch_size", str(TRAIN_BATCH),
+        "--num_step", str(TRAIN_STEPS), "--lr_schedule", "constant",
+        "--warmup_steps", "0", "--clip_gradient_norm", "10",
+        "--save_every", str(TRAIN_STEPS // 2), "--outbasepath",
+        os.path.join(tmp, "train"), "--device", "cuda"])
+    cfg = train_cli.build_config(args, True, device)
+    got = (cfg.resnet_depth, cfg.use_dilations, cfg.use_frcnn_class_agnostic,
+           cfg.num_class, cfg.add_mask, cfg.compute_dtype, cfg.freeze,
+           cfg.roi_align_train_impl, cfg.is_train, cfg.max_size,
+           cfg.short_edge_size)
+    if got != (101, True, True, 16, True, "bfloat16", 2, "pallas", True,
+               ACTEV_W, ACTEV_H):
+        raise AssertionError(f"not the train CLI's v4 default: {got}")
+    tree = init_params(cfg, seed=0)
+    for gname, group in tree["resnet"].items():    # as in phase 4
+        if gname.startswith("group"):
+            for blk in group.values():
+                last = blk["conv3"] if "conv3" in blk else blk["conv2"]
+                last["bn"]["gamma"] *= 0.2
+    init = os.path.join(tmp, "train_init.npz")
+    save_npz_tree(init, tree)
+    args.load_from = init
+    batch = train_batch(cfg, args.max_gt)
+    data = MemoryBatches(batch, TRAIN_STEPS)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    RA.multilevel_roi_align_cuda.launches = 0
+    RA.multilevel_roi_align_backward_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.mode_train(args, dataset=data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd_n = RA.multilevel_roi_align_cuda.launches
+    bwd_n = RA.multilevel_roi_align_backward_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    trainer = res["trainer"]
+    model = trainer.model
+    dtype = model.compute_dtype
+    losses = res["losses"]
+    log("train", f"main.py train: R{cfg.resnet_depth}-FPN v{args.version} + "
+        f"mask head, {cfg.num_class} "
+        f"classes, {ACTEV_W}x{ACTEV_H}, B={TRAIN_BATCH}, {dtype}, freeze "
+        f"{cfg.freeze}, roi_align_train_impl {cfg.roi_align_train_impl}, "
+        f"{res['step']} steps in {wall:.2f} s wall (build, load and "
+        f"checkpoints included); total loss per step: "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    log("train", f"launches: roi_align {fwd_n}, roi_align_backward {bwd_n} "
+        f"(2 per step each); peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    if res["step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"{res['step']} steps, want {TRAIN_STEPS}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: "
+                             f"{losses}")
+    if fwd_n != 2 * TRAIN_STEPS or bwd_n != 2 * TRAIN_STEPS:
+        raise AssertionError(f"{TRAIN_STEPS} steps launched roi_align "
+                             f"{fwd_n} and roi_align_backward {bwd_n} "
+                             f"times, want 2 per step each")
+    ckpts = sorted(os.listdir(train_cli.checkpoint_dir(args)))
+    if ckpts != sorted([f"step_{TRAIN_STEPS // 2}.pt",
+                        f"step_{TRAIN_STEPS}.pt"]):
+        raise AssertionError(f"checkpoints {ckpts}")
+    out = {"steps": res["step"], "losses": losses, "wall_s": wall,
+           "peak_gib": peak / 2 ** 30, "roi_align_launches": fwd_n,
+           "roi_align_backward_launches": bwd_n}
+
+    tb = [torch.from_numpy(x).to(device) for x in batch]
+    gen = torch.Generator(device=device)
+
+    # the step split by CUDA events
+    split = {"forward+loss": [], "backward": [], "optimizer": []}
+    for i in range(TRAIN_TIMED + 1):
+        gen.manual_seed(1000 + i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        step_losses = trainer.losses(*tb, generator=gen)
+        ev[1].record()
+        trainer.backward(step_losses)
+        ev[2].record()
+        trainer.apply_gradients()
+        ev[3].record()
+        ev[3].synchronize()
+        if 0 < i:       # the first absorbs the cuDNN autotuning
+            for k, (a, b) in zip(split, zip(ev, ev[1:])):
+                split[k].append(a.elapsed_time(b))
+    split = {k: sorted(v)[len(v) // 2] for k, v in split.items()}
+    out["step_ms"] = split
+    log("train", f"one bf16 step, median of {TRAIN_TIMED} (CUDA events): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f"; {sum(split.values()):.2f} ms in all")
+
+    # B1 and B1b on a step's own inputs (the box head's N=512 P=7 and the
+    # mask head's fg rows at P=14), read off its autograd graph
+    gen.manual_seed(1000 + TRAIN_TIMED + 1)
+    step_losses = trainer.losses(*tb, generator=gen)
+    captured = roi_backward_inputs(step_losses["total_loss"])
+    out["roi"], out["bwd"] = {}, {}
+    for pool in sorted(captured):
+        feats, boxes, strides, grad_out, levels = captured[pool]
+        label = f"N={boxes.shape[1]} P={pool}"
+        out["roi"][label] = check_roi_launch("train", label, feats, strides,
+                                             boxes, None, pool, True)
+        out["bwd"][label] = check_roi_backward(label, feats, boxes, strides,
+                                               pool, grad_out, levels)
+    del captured, trainer, model, res, step_losses
+    torch.cuda.empty_cache()
+
+    # one f32 step, kernel against plain, same batch and draws
+    out["f32"] = train_f32_check(cfg, tree, tb)
+    return out
+
+
+def roi_backward_inputs(loss):
+    """Runs loss's backward and returns, by pool size, the inputs that each
+    trainable ROIAlign node of its graph gives B1b: (features, boxes,
+    strides, grad_out, levels). The nodes are found by walking the graph
+    and read by a pre-hook, which sees the gradient before the node's
+    backward runs; the wrapper itself is left alone."""
+    captured, seen, todo = {}, set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "_TrainableROIAlignBackward":
+            def hook(grad_outputs, node=node):
+                boxes, levels, *feats = node.saved_tensors
+                captured[node.output_size] = (feats, boxes, node.strides,
+                                              grad_outputs[0].contiguous(),
+                                              levels)
+            node.register_prehook(hook)
+        todo.extend(f for f, _ in node.next_functions)
+    loss.backward()
+    return captured
+
+
+def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
+    """B1b on one training launch's own inputs against autograd of the
+    plain version (multilevel_roi_align_vjp). bf16 features, as on the
+    path: within one bf16 step of each value plus B1B_REL of the level's
+    largest magnitude (both round float32 sums that differ only in their
+    order); the same launch with the features in float32: within B1B_REL
+    of the level's largest magnitude. Times: the wrapper's CUDA-event time
+    and the plain version's (median of 15), the kernels' device time
+    (torch.profiler: zero fill, scatter, cast), the bound."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+
+    def kernel(f=feats):
+        return RA.multilevel_roi_align_backward_cuda(f, boxes, strides, pool,
+                                                     grad_out, levels)
+
+    def plain(f=feats):
+        return RA.multilevel_roi_align_vjp(f, boxes, strides, pool, grad_out,
+                                           levels)
+    entry = {}
+    for name, fs in (("bf16", feats), ("f32", [f.float() for f in feats])):
+        got, ref = kernel(fs), plain(fs)
+        err = share = 0.0
+        for g, r in zip(got, ref):
+            g, r = g.float(), r.float()
+            scale = r.abs().max().item()
+            d = (g - r).abs()
+            tol = B1B_REL * scale + (2.0 ** -7 * r.abs()
+                                     if fs[0].dtype == torch.bfloat16 else 0)
+            if not (d <= tol).all():
+                raise AssertionError(f"train roi_align_backward {label} "
+                                     f"{name}: max |kernel - plain| "
+                                     f"{d.max().item()} over its bound")
+            err = max(err, d.max().item())
+            share = max(share, d.max().item() / max(scale, 1e-30))
+        entry[f"err_{name}"], entry[f"share_{name}"] = err, share
+        del got, ref
+    entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
+    dev = device_ms(kernel, {"scatter": "roi_align_bwd", "cast": "cast_bf16",
+                             "zero": "Memset"}, runs=15)
+    entry["device_ms"] = sum(dev.values())
+    entry["device_by_part"] = dev
+    entry["bound_ms"] = roi_bwd_bound_ms(feats, boxes, strides, pool)
+    entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
+    entry["design_bytes_ms"] = roi_bwd_design_ms(feats, boxes, strides, pool)
+    log("train", f"roi_align_backward on the step's own inputs, {label}: max "
+        f"|kernel - plain| {entry['err_bf16']:.3g} bf16 (bound: one bf16 "
+        f"step + {B1B_REL} x max |plain|), {entry['err_f32']:.3g} f32 "
+        f"({entry['share_f32']:.3g} of max |plain|, bound {B1B_REL}); "
+        f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms "
+        f"(median of 15, CUDA events), device {entry['device_ms']:.4f} ms "
+        f"(torch.profiler, mean of 15: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in dev.items()) + f"), bound "
+        f"{entry['bound_ms']:.4f} ms (bytes), {entry['bound_share']:.1%} "
+        f"of it; the design's workspace adds {entry['design_bytes_ms']:.4f} "
+        f"ms of bytes (zero fill, atomics' re-read, cast's read)")
+    return entry
+
+
+def train_f32_check(cfg, tree, tb):
+    """One f32 forward_train + backward (TF32 off) with the trainable
+    ROIAlign kernels and with the plain ROIAlign's autograd, same weights,
+    batch and draws: losses within TRAIN_LOSS_REL, every gradient leaf
+    within TRAIN_GRAD_REL of its largest magnitude."""
+    import torch
+    from object_detection_tracking_tpu_torch.models import get_model
+    from object_detection_tracking_tpu_torch.params import (_leaves,
+                                                            params_from_jax)
+    device = tb[0].device
+    results = []
+    for impl in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, compute_dtype="float32",
+                                roi_align_train_impl=impl)
+        model = params_from_jax(tree, get_model(c)).to(device)
+        gen = torch.Generator(device=device).manual_seed(7)
+        losses = model.forward_train(*tb[:4], gt_masks=tb[4], generator=gen)
+        losses["total_loss"].backward()
+        grads = {"/".join(p): (t.grad if t.grad is not None
+                               else torch.zeros_like(t))
+                 for p, t, _ in _leaves(model)}
+        results.append(({k: v.item() for k, v in losses.items()}, grads))
+        del model, losses
+    (lk, gk), (lp, gp) = results
+    loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    if not loss_rel <= TRAIN_LOSS_REL:
+        raise AssertionError(f"train f32: losses kernel {lk} vs plain {lp}")
+    shares = leaf_shares(gk, gp)
+    worst = max(shares, key=shares.get)
+    if not shares[worst] <= TRAIN_GRAD_REL:
+        raise AssertionError(f"train f32: gradient of {worst} off by "
+                             f"{shares[worst]} of its max > {TRAIN_GRAD_REL}")
+    vals = sorted(shares.values())
+    log("train", f"f32 step, trainable ROIAlign kernels vs plain autograd: "
+        f"losses within {loss_rel:.3g} (bound {TRAIN_LOSS_REL}); gradients "
+        f"of {len(vals)} leaves within {vals[-1]:.3g} of each leaf's max "
+        f"(worst {worst}; median {vals[len(vals) // 2]:.3g}; bound "
+        f"{TRAIN_GRAD_REL})")
+    torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "grad_share_max": vals[-1],
+            "grad_share_median": vals[len(vals) // 2], "worst_leaf": worst,
+            "losses_kernel": lk, "losses_plain": lp}
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1085,10 +1488,16 @@ def main():
         torch.cuda.empty_cache()
         model, unfused, x, actev = phase_actev(tmp)
     prof = phase_profile(model, x, "actev-profile", unfused=unfused)
+    del model, unfused, x
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_train(tmp)
 
     roi = actev["check"]["roi"]
     err = max([r[0] for r in kres.values()] + [main_res["roi_err"]]
-              + [r["err"] for r in roi.values()])
+              + [r["err"] for r in roi.values()]
+              + [r["err"] for r in train["roi"].values()])
+    bwd = train["bwd"]
     _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
     _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
     bf = [sres[(name, "bfloat16")] for name, *_ in STAGES]
@@ -1109,6 +1518,8 @@ def main():
         "bound_share": roi_bound / roi_device,
         "bound_by": "bytes", "library_ms": None,
         "per_launch": roi,
+        "train_launches": train["roi_align_launches"],
+        "train_per_launch": train["roi"],
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -1118,7 +1529,33 @@ def main():
                   "1088x1920 pyramid, C=256): N=1000 P=7, N=100 P=7, "
                   "N=100 P=14; ms (CUDA events around the wrapper), "
                   "device_ms (the kernel alone, torch.profiler), plain_ms "
-                  "and bound_ms summed over them"},
+                  "and bound_ms summed over them; train_launches: the "
+                  "training phase's 8 steps (box head N=512 P=7, mask head "
+                  "P=14, B=2), train_per_launch timed on a step's own "
+                  "inputs"},
+        {"name": "roi_align_backward", "route": "cuda",
+         "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
+         "replaces": "object_detection_tracking_tpu/ops/pallas/"
+                     "roi_align_pallas.py:600",
+         "launches": train["roi_align_backward_launches"],
+         "max_abs_err": max(r["err_f32"] for r in bwd.values()),
+         "max_abs_err_bf16": max(r["err_bf16"] for r in bwd.values()),
+         "ms": sum(r["ms"] for r in bwd.values()),
+         "device_ms": sum(r["device_ms"] for r in bwd.values()),
+         "plain_ms": sum(r["plain_ms"] for r in bwd.values()),
+         "bound_ms": sum(r["bound_ms"] for r in bwd.values()),
+         "bound_by": "bytes", "library_ms": None,
+         "design_bytes_ms": sum(r["design_bytes_ms"] for r in bwd.values()),
+         "per_launch": bwd,
+         "shapes": "the training step's two launches (B=2, 1088x1920 "
+                   "pyramid, C=256, bf16 features, float32 grad_out): box "
+                   "head N=512 P=7, mask head fg rows P=14; max_abs_err "
+                   "with the features in float32, max_abs_err_bf16 on the "
+                   "path's bf16; ms, device_ms, plain_ms, bound_ms summed "
+                   "over the two; bound_ms: grad_out read and the gradients "
+                   "written once; design_bytes_ms: the float32 workspace's "
+                   "zero fill, atomics' re-read and cast read over the "
+                   "memory rate, the design's overhead against bound_ms"},
         {"name": "bottleneck_stage", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/"
                    "bottleneck_stage.cu",
@@ -1149,7 +1586,9 @@ def main():
                    "per_conv_floor_ms, cudnn_stack_ms and by_kind summed "
                    "over the three"}],
         "actev_path": {k: v for k, v in actev.items() if k != "check"},
-        "actev_profile": prof, "card": card}
+        "actev_profile": prof,
+        "train": {k: v for k, v in train.items() if k not in ("roi", "bwd")},
+        "card": card}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

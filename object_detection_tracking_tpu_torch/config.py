@@ -1,14 +1,17 @@
-"""Typed configuration of the detector and the tracker: the port's own copy
-of object_detection_tracking_tpu/config.py (``DetectorConfig``,
-``TrackerConfig``, ``RESNET_ARCH``, with the same fields, defaults,
-presets and derived properties), so that the port imports nothing of the
-JAX package. tests/test_torch_isolation.py holds the two copies equal.
+"""Typed configuration of the detector, the tracker and training: the
+port's own copy of object_detection_tracking_tpu/config.py
+(``DetectorConfig``, ``TrackerConfig``, ``TrainConfig``, ``RESNET_ARCH``,
+with the same fields, defaults, presets and derived properties), so that
+the port imports nothing of the JAX package. tests/test_torch_isolation.py
+holds the two copies equal.
 
 In the port, ``backbone_impl="pallas"`` runs each group's stride-1
 bottleneck tail through the hand-written CUDA kernel
 (ops/resnet_stage.py), ``roi_align_impl="pallas"`` the ROIAlign kernel
 (ops/roi_align.py); "xla" names the plain PyTorch paths (cuDNN convs, the
-exact ROIAlign gather).
+exact ROIAlign gather). ``roi_align_train_impl`` keeps JAX's default,
+"xla"; the port's train CLI sets "pallas", the kernel's forward and its
+backward kernel (ROADMAP C9).
 """
 
 from __future__ import annotations
@@ -129,7 +132,10 @@ class DetectorConfig:
     # "pallas": the ROIAlign kernel (ops/roi_align.py); "xla": the exact
     # plain gather
     roi_align_impl: str = "pallas"
-    # ROIAlign inside a train step (training is not ported yet)
+    # ROIAlign inside a train step: "pallas" is the trainable kernel
+    # (ops/roi_align.py multilevel_roi_align_trainable), "xla" autograd of
+    # the plain gather. JAX's default, kept; cli/main.py train sets
+    # "pallas" (ROADMAP C9)
     roi_align_train_impl: str = "xla"
     # which model family get_model builds by default
     model: str = "faster_rcnn"
@@ -288,3 +294,21 @@ class TrackerConfig:
     track_buffer_seconds: float = 2.0
     fuse_lambda: float = 0.98
     emb_smooth_alpha: float = 0.9
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training schedule/optimizer config (reference trainer.py:49-98)."""
+
+    optimizer: str = "momentum"
+    init_lr: float = 0.003
+    momentum: float = 0.9
+    wd: float = 1e-4
+    warmup_steps: int = 1000
+    warmup_init_lr: float = 0.0003
+    lr_schedule: str = "cosine"           # cosine | exp | constant
+    total_steps: int = 360000
+    clip_gradient_norm: Optional[float] = None
+    train_batch_size: int = 1             # per device
+    save_every_steps: int = 5000
+    eval_every_steps: int = 5000

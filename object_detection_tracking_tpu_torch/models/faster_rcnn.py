@@ -1,5 +1,5 @@
-"""Faster-RCNN-FPN detector, inference forward (port of
-object_detection_tracking_tpu/models/faster_rcnn.py:54-657).
+"""Faster-RCNN-FPN detector, the inference forward and the training losses
+(port of object_detection_tracking_tpu/models/faster_rcnn.py:54-821).
 
 Shapes stay static and padded as in the JAX model: proposals and detections
 are fixed-size arrays with validity masks, so the output contract is the
@@ -17,7 +17,18 @@ stride-1 bottleneck tails through the bottleneck-stage kernel's wrapper
 ``config.roi_align_impl`` keeps the JAX gate: "pallas" runs the
 hand-written kernel's wrapper (ops/roi_align.py multilevel_roi_align_cuda:
 the CUDA kernel for CUDA tensors, the plain version for CPU tensors), "xla"
-runs the plain exact version on any device.
+runs the plain exact version on any device. In training (``is_train``)
+"pallas" is replaced by ``config.roi_align_train_impl`` as in JAX
+(faster_rcnn.py:462-482): "pallas" runs ``multilevel_roi_align_trainable``
+(kernels B1 and B1b on CUDA tensors), "xla" autograd of the plain version.
+
+``forward_train`` returns the training losses (JAX faster_rcnn.py:679-821):
+RPN losses over all anchors, proposals at the train top-k on detached
+logits, sampled RoI targets, the box head's losses and, with ``add_mask``
+and gt masks, the mask loss. Each loss is reduced per image, then averaged
+over the batch, as JAX's ``vmap`` and ``.mean()`` do. The random subsamples
+take uniform draws from a ``torch.Generator`` or, given ``noise``, those
+draws (train/targets.py).
 
 Outputs per image (R = config.result_per_im): final_boxes [R, 4] x1y1x2y2,
 final_labels [R] int32, final_probs [R], final_valid [R] bool,
@@ -29,7 +40,7 @@ class mask from the Mask R-CNN head over a 14x14 ROIAlign).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +49,12 @@ from torch import nn
 
 from ..class_ids import coco_obj_class_to_id
 from ..ops import anchors as anchor_lib
-from ..ops.boxes import clip_boxes, decode_boxes
+from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
 from ..ops.nms import nms, sort_desc_stable
-from ..ops.roi_align import multilevel_roi_align, multilevel_roi_align_cuda
+from ..ops.roi_align import (multilevel_roi_align, multilevel_roi_align_cuda,
+                             multilevel_roi_align_trainable)
+from ..train import losses as loss_lib
+from ..train import targets as target_lib
 from .fpn import FPN, RPNHead
 from .heads import FastRCNN2FCHead, MaskRCNNUp4ConvHead
 from .resnet import ResNet
@@ -73,8 +87,7 @@ class FasterRCNNFPN(nn.Module):
                            ("use_small_object_head", "A8"),
                            ("add_relation_nn", "A8"),
                            ("use_att_frcnn_head", "A8"),
-                           ("use_conv_frcnn_head", "A8"),
-                           ("is_train", "A9")):
+                           ("use_conv_frcnn_head", "A8")):
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f"{flag} is not ported yet (ROADMAP {item})")
@@ -88,7 +101,7 @@ class FasterRCNNFPN(nn.Module):
             cfg.resnet_num_block, cfg.use_basic_block,
             use_dilations=cfg.use_dilations, use_se=cfg.use_se,
             use_resnext=cfg.use_resnext, use_deformable=cfg.use_deformable,
-            fused_stages=cfg.backbone_impl == "pallas")
+            fused_stages=cfg.backbone_impl == "pallas" and not cfg.is_train)
         self.fpn = FPN(self.c_channels, cfg.fpn_num_channel)
         self.rpn = RPNHead(cfg.fpn_num_channel, cfg.num_anchors_per_cell)
         self.fastrcnn = FastRCNN2FCHead(
@@ -112,7 +125,8 @@ class FasterRCNNFPN(nn.Module):
             self.num_out_class = cfg.num_class
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self._geometry: Dict = {}
-        self.requires_grad_(False)   # inference only (training: ROADMAP A9)
+        # every leaf takes gradients in training, as under jax.grad
+        self.requires_grad_(bool(cfg.is_train))
 
     @property
     def device(self) -> torch.device:
@@ -194,8 +208,11 @@ class FasterRCNNFPN(nn.Module):
 
     def backbone(self, p_images: torch.Tensor) -> List[torch.Tensor]:
         """NHWC padded images -> [p2..p6] NHWC views of channels_last maps
-        (the views are contiguous NHWC, so ROIAlign reads them as is)."""
-        c2345 = self.resnet(p_images.permute(0, 3, 1, 2))
+        (the views are contiguous NHWC, so ROIAlign reads them as is). In
+        training, no gradient crosses group ``config.freeze``."""
+        cfg = self.config
+        c2345 = self.resnet(p_images.permute(0, 3, 1, 2),
+                            freeze=cfg.freeze if cfg.is_train else -1)
         return [p.permute(0, 2, 3, 1) for p in self.fpn(c2345)]
 
     def _rpn_all_levels(self, p23456):
@@ -208,9 +225,13 @@ class FasterRCNNFPN(nn.Module):
         faster_rcnn.py:286-352): per-level exact top-k, decode + clip,
         per-level NMS, then the global top-k. label_logits [B, FH, FW, A]
         and box_logits [B, FH, FW, A, 4] per level. Returns (boxes [B, K, 4],
-        valid [B, K])."""
+        valid [B, K]). The logits are detached, as JAX cuts gradients here
+        (faster_rcnn.py:293-294)."""
         cfg = self.config
-        kk = cfg.rpn_test_post_nms_topk
+        kk = (cfg.rpn_train_post_nms_topk if cfg.is_train
+              else cfg.rpn_test_post_nms_topk)
+        label_logits = [x.detach() for x in label_logits]
+        box_logits = [x.detach() for x in box_logits]
         b = label_logits[0].shape[0]
         lvl_boxes, lvl_scores, lvl_valid = [], [], []
         for lvl in range(cfg.num_levels):
@@ -252,12 +273,20 @@ class FasterRCNNFPN(nn.Module):
 
     def _roi_align_batched(self, p23456, boxes, pool: int, valid=None):
         """FPN ROIAlign over the batch -> [B, N, pool, pool, C] f32, invalid
-        slots 0 (JAX faster_rcnn.py:451-490)."""
+        slots 0 (JAX faster_rcnn.py:451-490); the training dispatch of
+        :462-482 (module note)."""
         cfg = self.config
-        fn = (multilevel_roi_align_cuda if cfg.roi_align_impl == "pallas"
+        feats = list(p23456[:4])
+        strides = cfg.anchor_strides[:4]
+        impl = cfg.roi_align_impl
+        if cfg.is_train and impl == "pallas":
+            impl = cfg.roi_align_train_impl
+            if impl == "pallas":
+                return multilevel_roi_align_trainable(feats, boxes, strides,
+                                                      pool)
+        fn = (multilevel_roi_align_cuda if impl == "pallas"
               else multilevel_roi_align)
-        return fn(list(p23456[:4]), boxes, cfg.anchor_strides[:4], pool,
-                  valid=valid)
+        return fn(feats, boxes, strides, pool, valid=valid)
 
     def _apply_head(self, roi_feats: torch.Tensor):
         """Box head over [B, K, 7, 7, C] features as one flat batch (JAX
@@ -386,3 +415,111 @@ class FasterRCNNFPN(nn.Module):
         picked = torch.gather(
             logits, -1, sel[:, :, None, None, None].expand(b, r, 28, 28, 1))
         return torch.sigmoid(picked[..., 0])
+
+    # ------------------------------------------------------------------
+    # training forward
+
+    def forward_train(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                      gt_masks: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Training losses (JAX faster_rcnn.py:679-781). images [B, h, w, 3]
+        BGR; gt_boxes [B, G, 4] padded; gt_labels [B, G] int (1..C-1);
+        gt_valid [B, G] bool; gt_masks optional [B, G, Ms, Ms] box-local
+        instance masks (the mask loss, with ``add_mask``). The random
+        subsamples draw from ``generator``, or take ``noise``: uniform draws
+        "rpn_fg", "rpn_bg" [B, NA] (NA anchors over all levels) and
+        "frcnn_fg", "frcnn_bg" [B, K + G] (K train proposals). Returns
+        scalar losses and their sum, "total_loss"."""
+        cfg = self.config
+        noise = noise or {}
+        b, h, w = images.shape[:3]
+        hp, wp, fields, valids = self._static_geometry(h, w)
+
+        p23456 = self.backbone(self.preprocess(images, hp, wp))
+        label_logits, box_logits = self._rpn_all_levels(p23456)
+
+        # ---- RPN losses over the flat all-level anchor set
+        flat_anchors = torch.cat(fields, dim=0)
+        flat_label_logits = torch.cat([x.reshape(b, -1)
+                                       for x in label_logits], dim=1)
+        flat_box_logits = torch.cat([x.reshape(b, -1, 4)
+                                     for x in box_logits], dim=1)
+        labels, tboxes = target_lib.anchor_targets(
+            flat_anchors, gt_boxes, gt_valid, (h, w), cfg.rpn_batch_per_im,
+            cfg.rpn_fg_ratio, cfg.positive_anchor_thres,
+            cfg.negative_anchor_thres, u_fg=noise.get("rpn_fg"),
+            u_bg=noise.get("rpn_bg"), generator=generator)
+        safe_t = torch.where((labels == 1)[..., None], tboxes,
+                             flat_anchors.expand_as(tboxes))
+        rpn_loss = loss_lib.rpn_losses(
+            labels, safe_t, flat_anchors, flat_label_logits, flat_box_logits,
+            cfg.rpn_batch_per_im, use_focal=cfg.focal_loss)
+
+        # ---- proposals (train top-k) + target sampling
+        prop_boxes, prop_valid = self._proposals(
+            label_logits, box_logits, fields, valids, h, w)
+        samples = target_lib.sample_fastrcnn_targets(
+            prop_boxes, prop_valid, gt_boxes, gt_labels, gt_valid,
+            cfg.fastrcnn_batch_per_im, cfg.fastrcnn_fg_ratio,
+            cfg.fastrcnn_fg_thres, u_fg=noise.get("frcnn_fg"),
+            u_bg=noise.get("frcnn_bg"), generator=generator)
+
+        # unit boxes on padded rows keep encode finite under autograd:
+        # torch.where, like jnp.where, passes the other branch's NaN
+        # gradients
+        unit = torch.tensor([0.0, 0.0, 1.0, 1.0], device=images.device)
+        roi_boxes = torch.where(samples["valid"][..., None],
+                                samples["boxes"], unit).contiguous()
+        roi_feats = self._roi_align_batched(p23456, roi_boxes, 7)
+        label_out, box_out = self._apply_head(roi_feats)
+
+        reg_w = torch.tensor(cfg.fastrcnn_bbox_reg_weights,
+                             dtype=torch.float32, device=images.device)
+        fg_gt_safe = torch.where(samples["fg"][..., None],
+                                 samples["fg_gt_boxes"], roi_boxes)
+        enc_fg = encode_boxes(fg_gt_safe, roi_boxes) * reg_w
+        frcnn_loss = loss_lib.fastrcnn_losses(
+            samples["labels"], label_out, enc_fg, box_out, samples["valid"],
+            samples["fg"], use_focal=cfg.focal_loss)
+
+        losses = {k: v.mean() for k, v in {**rpn_loss, **frcnn_loss}.items()}
+        if self.maskrcnn is not None and gt_masks is not None:
+            losses["mrcnn_loss"] = self._mask_train_loss(
+                p23456, roi_boxes, samples, gt_masks)
+        losses["total_loss"] = sum(losses.values())
+        return losses
+
+    def _mask_train_loss(self, p23456, roi_boxes, samples, gt_masks
+                         ) -> torch.Tensor:
+        """Mask R-CNN training loss (JAX faster_rcnn.py:783-821): the head
+        on the fg sample slots only (packed first), 28x28 targets resampled
+        from each fg row's matched box-local gt mask onto its roi box."""
+        cfg = self.config
+        s = roi_boxes.shape[1]
+        fg_cap = min(int(cfg.fastrcnn_batch_per_im * cfg.fastrcnn_fg_ratio),
+                     s)
+        fg_boxes = roi_boxes[:, :fg_cap].contiguous()
+        fg_flags = samples["fg"][:, :fg_cap]
+        fg_labels = samples["labels"][:, :fg_cap]
+        fg_gt_idx = samples["fg_gt_idx"][:, :fg_cap].long()
+        fg_gt_boxes = samples["fg_gt_boxes"][:, :fg_cap]
+        # keep the coordinate map well-conditioned on padded rows
+        unit = torch.tensor([0.0, 0.0, 1.0, 1.0], device=roi_boxes.device)
+        safe_gt = torch.where(fg_flags[..., None], fg_gt_boxes, unit)
+
+        b = fg_boxes.shape[0]
+        mask_feats = self._roi_align_batched(p23456, fg_boxes, 14)
+        mask_logits = self.maskrcnn(mask_feats.reshape(
+            b * fg_cap, 14, 14, -1).to(self.compute_dtype)).float()
+        mask_logits = mask_logits.reshape(b, fg_cap, 28, 28, -1)
+
+        ms = gt_masks.shape[-1]
+        picked = torch.gather(gt_masks.float(), 1, fg_gt_idx[
+            :, :, None, None].expand(b, fg_cap, ms, ms))
+        tgt = loss_lib.crop_mask_to_roi(picked, safe_gt, fg_boxes)
+        tgt = (tgt >= 0.5).float()
+        return loss_lib.maskrcnn_loss(mask_logits, fg_labels, fg_flags,
+                                      tgt).mean()

@@ -19,11 +19,20 @@ each group of dilation 1 runs its stride-2 lead block unfused and its
 stride-1 tail through the bottleneck-stage kernel (ops/resnet_stage.py),
 once per group. The JAX path's ``_fusable_rows`` and ``_pick_tr >= 4``
 fallbacks are TPU VMEM limits and are left out (ROADMAP C6): every
-eligible tail is fused.
+eligible tail is fused. Training runs the unfused blocks (the model builds
+its ResNet without ``fused_stages`` when ``is_train``, JAX
+faster_rcnn.py:276-277).
+
+``freeze`` is JAX's gradient cut (resnet.py:287-288): the stem and groups
+0..freeze run under ``torch.no_grad()``, so their outputs carry no
+gradient, as ``stop_gradient`` after group ``freeze`` gives in JAX. Their
+parameters end a backward with no ``.grad``; the trainer fills zeros, as
+``jax.grad`` returns for them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence
 
 import torch
@@ -147,27 +156,39 @@ class ResNet(nn.Module):
                 self.fused_groups.append(gi)
         self.num_groups = len(num_blocks)
 
-    def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
-        """image: [B, 3, Hp, Wp] padded, normalized, compute dtype.
+    def forward(self, image: torch.Tensor, freeze: int = -1
+                ) -> List[torch.Tensor]:
+        """image: [B, 3, Hp, Wp] padded, normalized, compute dtype; the stem
+        and groups 0..freeze run without gradients (module note).
         Returns [c2, c3, c4, c5] NCHW."""
-        l = conv2d(self.conv0, image, stride=2, padding=((3, 2), (3, 2)))
-        l = bn_relu(self.conv0.bn, l)
-        l = max_pool(l, 3, 2, padding=((1, 0), (1, 0)))
+        def cut(gi):
+            return (torch.no_grad() if freeze >= gi
+                    else contextlib.nullcontext())
+
+        with cut(0):
+            l = conv2d(self.conv0, image, stride=2, padding=((3, 2), (3, 2)))
+            l = bn_relu(self.conv0.bn, l)
+            l = max_pool(l, 3, 2, padding=((1, 0), (1, 0)))
         outs = []
         for gi in range(self.num_groups):
-            blocks = list(getattr(self, f"group{gi}").values())
-            if gi in self.fused_groups:
-                if blocks[0].stride != 1:   # the kernel is stride-1 only
-                    l = blocks[0](l)
-                    blocks = blocks[1:]
-                if blocks:
-                    # channels_last NCHW is NHWC memory: no copy either way
-                    width = blocks[0].conv1.weight.shape[0]
-                    l = fused_bottleneck_stage_cuda(
-                        blocks, l.permute(0, 2, 3, 1).contiguous(), width,
-                        4 * width).permute(0, 3, 1, 2)
-            else:
-                for block in blocks:
-                    l = block(l)
+            with cut(gi):
+                l = self._group(gi, l)
             outs.append(l)
         return outs
+
+    def _group(self, gi: int, l: torch.Tensor) -> torch.Tensor:
+        blocks = list(getattr(self, f"group{gi}").values())
+        if gi in self.fused_groups:
+            if blocks[0].stride != 1:   # the kernel is stride-1 only
+                l = blocks[0](l)
+                blocks = blocks[1:]
+            if blocks:
+                # channels_last NCHW is NHWC memory: no copy either way
+                width = blocks[0].conv1.weight.shape[0]
+                l = fused_bottleneck_stage_cuda(
+                    blocks, l.permute(0, 2, 3, 1).contiguous(), width,
+                    4 * width).permute(0, 3, 1, 2)
+        else:
+            for block in blocks:
+                l = block(l)
+        return l

@@ -5,6 +5,7 @@ Tensor functions take torch tensors and broadcast over leading dims; the
 ``_np`` functions and the tlwh/xyxy helpers are the JAX module's host numpy
 code, unchanged. Numerics follow the reference TF graph ops:
   * decode:        nn.py:1518-1541 (center-offset + log-wh, decode clip)
+  * encode:        nn.py:1588-1616 (its inverse, for training targets)
   * clip_boxes:    nn.py:1339-1346 (clip x to W, y to H — not W-1/H-1)
   * pairwise_iou:  nn.py:675-700 (continuous area, no +1)
   * get_new_hw:    nn.py:1548-1560 (short-edge resize with max cap)
@@ -69,6 +70,22 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
     wbhb = torch.exp(torch.clamp(twh, max=decode_clip)) * waha
     xbyb = txy * waha + xaya
     return torch.cat([xbyb - wbhb * 0.5, xbyb + wbhb * 0.5], dim=-1)
+
+
+def encode_boxes(target: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Inverse of decode_boxes: (tx,ty,tw,th) of x1y1x2y2 ``target`` against
+    ``anchors``, broadcast over leading dims (JAX ops/boxes.py:82-95)."""
+    a_x1y1 = anchors[..., 0:2]
+    a_x2y2 = anchors[..., 2:4]
+    waha = a_x2y2 - a_x1y1
+    xaya = (a_x2y2 + a_x1y1) * 0.5
+    t_x1y1 = target[..., 0:2]
+    t_x2y2 = target[..., 2:4]
+    wghg = t_x2y2 - t_x1y1
+    xgyg = (t_x2y2 + t_x1y1) * 0.5
+    txy = (xgyg - xaya) / waha
+    twh = torch.log(wghg / waha)
+    return torch.cat([txy, twh], dim=-1)
 
 
 def clip_boxes(boxes: torch.Tensor, hw) -> torch.Tensor:

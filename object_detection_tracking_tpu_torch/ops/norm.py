@@ -2,8 +2,15 @@
 
 Stored EMA statistics applied with eps=1e-5 (reference nn.py:1722-1792).
 The affine folds into one scale/offset pair computed in f32 from the f32
-buffers, then applied in the activation's dtype — as the JAX op does.
+leaves, then applied in the activation's dtype — as the JAX op does.
 Activations are NCHW here (channels_last memory inside the backbone).
+
+In training, JAX differentiates every leaf of the param tree, so all four
+statistics of a BN outside the frozen groups take gradients and optimizer
+updates (JAX ops/norm.py:26-34 has no stop_gradient). They are therefore
+``nn.Parameter``s here, created with ``requires_grad=False``: a model built
+for training (``FasterRCNNFPN`` with ``is_train``) turns gradients on for
+every parameter.
 """
 
 from __future__ import annotations
@@ -15,15 +22,15 @@ BN_EPS = 1e-5
 
 
 class FrozenBN(nn.Module):
-    """Inference BN statistics (buffers gamma/beta/mean/variance, named as
-    in the JAX param tree); applied with ``frozen_bn``/``bn_relu``."""
+    """BN statistics (parameters gamma/beta/mean/variance, named as in the
+    JAX param tree); applied with ``frozen_bn``/``bn_relu``."""
 
     def __init__(self, c: int):
         super().__init__()
-        self.register_buffer("gamma", torch.ones(c))
-        self.register_buffer("beta", torch.zeros(c))
-        self.register_buffer("mean", torch.zeros(c))
-        self.register_buffer("variance", torch.ones(c))
+        for name, value in (("gamma", torch.ones(c)), ("beta", torch.zeros(c)),
+                            ("mean", torch.zeros(c)),
+                            ("variance", torch.ones(c))):
+            setattr(self, name, nn.Parameter(value, requires_grad=False))
 
 
 def frozen_bn(bn: FrozenBN, x: torch.Tensor) -> torch.Tensor:

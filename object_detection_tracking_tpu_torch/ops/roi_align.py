@@ -1,6 +1,8 @@
 """Multilevel FPN ROIAlign: the plain PyTorch spec and the CUDA kernel's
 wrapper (port of object_detection_tracking_tpu/ops/roi_align.py and of the
-Pallas kernel ops/pallas/roi_align_pallas.py).
+Pallas kernel ops/pallas/roi_align_pallas.py), and the trainable version
+(``multilevel_roi_align_trainable``, JAX roi_align_pallas.py:584-610): the
+forward kernel B1 with the backward kernel B1b, both in csrc/roi_align.cu.
 
 Semantics are exact ``tf.image.crop_and_resize`` fpcoor sampling
 (reference nn.py:1229-1335): for output pixel i of a crop of size S over
@@ -140,43 +142,49 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     return out
 
 
+def multilevel_roi_align_vjp(features: Sequence[torch.Tensor],
+                             boxes: torch.Tensor, strides: Sequence[int],
+                             output_size: int, grad_out: torch.Tensor,
+                             levels: Optional[torch.Tensor] = None):
+    """The gradient of ``multilevel_roi_align`` (no ``valid``) with respect
+    to each feature level, by autograd of the plain version: kernel B1b's
+    spec and its CPU path (JAX ``_mra_bwd``, roi_align_pallas.py:600-607,
+    without the box gradient). Returns one tensor per level, in that
+    level's dtype."""
+    with torch.enable_grad():
+        feats = [f.detach().requires_grad_(True) for f in features]
+        out = multilevel_roi_align(feats, boxes.detach(), strides,
+                                   output_size, levels=levels)
+        return list(torch.autograd.grad(out, feats, grad_out))
+
+
 # --------------------------------------------------------------------------
-# CUDA kernel wrapper (csrc/roi_align.cu)
+# CUDA kernel wrappers (csrc/roi_align.cu)
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 12 + [_P] * 4 + [_I] * 5 + [_P]
+_BWD_ARGTYPES = [_P] * 2 + [_I] * 12 + [_P] * 3 + [_I] * 5 + [_P]
 _MAX_POOL = 32   # 2P <= 64 samples per axis: two per lane of a warp
 
 
-def _cuda_lib():
+def _cuda_fn(name: str, argtypes):
     from ..native import load_cuda
-    lib = load_cuda("roi_align")
-    fn = lib.roi_align_forward
+    fn = getattr(load_cuda("roi_align"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
-                              boxes: torch.Tensor, strides: Sequence[int],
-                              output_size: int,
-                              valid: Optional[torch.Tensor] = None,
-                              levels: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
-    """FPN ROIAlign through the hand-written CUDA kernel; same arguments and
-    result as ``multilevel_roi_align``. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel on the current stream (no sync) or
-    raises. Any C is taken: the kernel reads 16 bytes per lane where C is a
-    multiple of 8 (bf16) or 4 (float32) and every level starts on 16 bytes,
-    and runs its scalar path otherwise (for example a feature view whose
-    storage offset leaves it off 16 bytes).
-    ``multilevel_roi_align_cuda.launches`` counts the launches."""
-    if boxes.device.type == "cpu":
-        return multilevel_roi_align(features, boxes, strides, output_size,
-                                    valid=valid, levels=levels)
+def _cuda_lib():
+    """The forward kernel's C entry (tools/torch_roi_align_ab.py swaps it)."""
+    return _cuda_fn("roi_align_forward", _ARGTYPES)
+
+
+def _check_cuda_args(features, boxes, strides, output_size):
+    """The kernels' shared argument checks; returns (b, n, c, dtype)."""
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
     if len(features) != 4 or len(strides) != 4:
@@ -198,6 +206,27 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
             raise ValueError(
                 "features must be contiguous NHWC [B, H_l, W_l, C] tensors "
                 "of one dtype on the boxes' device")
+    return b, n, c, dtype
+
+
+def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
+                              boxes: torch.Tensor, strides: Sequence[int],
+                              output_size: int,
+                              valid: Optional[torch.Tensor] = None,
+                              levels: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """FPN ROIAlign through the hand-written CUDA kernel; same arguments and
+    result as ``multilevel_roi_align``. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel on the current stream (no sync) or
+    raises. Any C is taken: the kernel reads 16 bytes per lane where C is a
+    multiple of 8 (bf16) or 4 (float32) and every level starts on 16 bytes,
+    and runs its scalar path otherwise (for example a feature view whose
+    storage offset leaves it off 16 bytes).
+    ``multilevel_roi_align_cuda.launches`` counts the launches."""
+    if boxes.device.type == "cpu":
+        return multilevel_roi_align(features, boxes, strides, output_size,
+                                    valid=valid, levels=levels)
+    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size)
     if valid is not None and (valid.shape != (b, n)
                               or valid.dtype != torch.bool
                               or valid.device != boxes.device
@@ -225,3 +254,94 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
 
 
 multilevel_roi_align_cuda.launches = 0
+
+
+def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
+                                       boxes: torch.Tensor,
+                                       strides: Sequence[int],
+                                       output_size: int,
+                                       grad_out: torch.Tensor,
+                                       levels: Optional[torch.Tensor] = None):
+    """The gradient of the ROIAlign forward (no ``valid``) with respect to
+    each feature level through the hand-written CUDA kernel B1b; same
+    arguments and result as ``multilevel_roi_align_vjp``. A CPU tensor takes
+    that plain version; a CUDA tensor launches the kernel on the current
+    stream (zero fill, scatter with float atomics, cast to bf16 for bf16
+    features; no sync) or raises. The float32 workspace is the result for
+    float32 features. ``multilevel_roi_align_backward_cuda.launches``
+    counts the launches."""
+    if boxes.device.type == "cpu":
+        return multilevel_roi_align_vjp(features, boxes, strides, output_size,
+                                        grad_out, levels=levels)
+    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size)
+    p = output_size
+    if grad_out.shape != (b, n, p, p, c) or grad_out.dtype != torch.float32 \
+            or grad_out.device != boxes.device:
+        raise ValueError(f"grad_out must be float32 [B, N, P, P, C] = "
+                         f"{(b, n, p, p, c)} on the boxes' device")
+    grad_out = grad_out.contiguous()
+    lvl = fpn_map_rois_to_levels(boxes) if levels is None else levels
+    lvl = lvl.to(torch.int32).clamp(0, 3).contiguous()
+    sizes = [b * f.shape[1] * f.shape[2] * c for f in features]
+    work = torch.empty(sum(sizes), dtype=torch.float32, device=boxes.device)
+    out = work if dtype == torch.float32 else torch.empty(
+        sum(sizes), dtype=dtype, device=boxes.device)
+    dims = []
+    for f in features:
+        dims += [f.shape[1], f.shape[2]]
+    err = _cuda_fn("roi_align_backward", _BWD_ARGTYPES)(
+        work.data_ptr(), None if out is work else out.data_ptr(), *dims,
+        *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
+        grad_out.data_ptr(), b, n, c, p, int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(boxes.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"roi_align backward kernel launch failed: CUDA error {err}")
+    multilevel_roi_align_backward_cuda.launches += 1
+    return [g.view(f.shape) for g, f in zip(out.split(sizes), features)]
+
+
+multilevel_roi_align_backward_cuda.launches = 0
+
+
+class _TrainableROIAlign(torch.autograd.Function):
+    """Forward through ``multilevel_roi_align_cuda`` (B1), backward through
+    ``multilevel_roi_align_backward_cuda`` (B1b), both looked up at call
+    time; each takes its plain version for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, boxes, strides, output_size, *features):
+        levels = fpn_map_rois_to_levels(boxes)
+        ctx.save_for_backward(boxes, levels, *features)
+        ctx.strides, ctx.output_size = strides, output_size
+        return multilevel_roi_align_cuda(list(features), boxes, strides,
+                                         output_size, levels=levels)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, levels, *features = ctx.saved_tensors
+        grads = multilevel_roi_align_backward_cuda(
+            features, boxes, ctx.strides, ctx.output_size, grad_out,
+            levels=levels)
+        return (None, None, None, *grads)
+
+
+def multilevel_roi_align_trainable(features: Sequence[torch.Tensor],
+                                   boxes: torch.Tensor,
+                                   strides: Sequence[int],
+                                   output_size: int) -> torch.Tensor:
+    """Differentiable FPN ROIAlign (JAX ``multilevel_roi_align_trainable``,
+    roi_align_pallas.py:584-610): the same result as
+    ``multilevel_roi_align`` without ``valid``, with gradients to the
+    features. On CUDA tensors the forward is kernel B1 and the backward
+    kernel B1b; on CPU tensors both are the plain version and its autograd.
+
+    No gradient reaches the boxes. JAX's ``_mra_bwd`` returns one, but on
+    the training path nothing consumes it: the proposals are cut by
+    ``stop_gradient`` (faster_rcnn.py:735) and the gt rows are inputs. So
+    boxes that require grad raise here rather than silently get none."""
+    if boxes.requires_grad:
+        raise ValueError("multilevel_roi_align_trainable gives no gradient "
+                         "to the boxes; pass detached boxes")
+    return _TrainableROIAlign.apply(boxes, tuple(int(s) for s in strides),
+                                    output_size, *features)

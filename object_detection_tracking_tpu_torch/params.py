@@ -9,7 +9,7 @@ a module attribute one to one:
   * ``Conv.weight`` [O, I, kh, kw]  <->  conv ``W`` HWIO [kh, kw, I, O]
   * ``nn.Linear.weight`` [out, in]  <->  dense ``W`` [in, out]
   * ``bias``                        <->  ``b``
-  * FrozenBN buffers                <->  ``bn/{gamma,beta,mean,variance}``
+  * FrozenBN parameters             <->  ``bn/{gamma,beta,mean,variance}``
 
 ``init_params`` builds that tree without JAX, from a ``torch.Generator``,
 with the JAX initialiser families (models/layers.py:29-61, fpn.py:20-74,
@@ -117,6 +117,24 @@ def load_npz_tree(path: str) -> Tree:
                 node = node.setdefault(k, {})
             node[parts[-1]] = data[name]
     return out
+
+
+def save_npz_tree(path: str, tree: Tree) -> None:
+    """Write a nested param tree as the JAX package's native flat
+    slash-named ``.npz`` (utils/weights.py save_npz), with numpy alone:
+    the JAX package's ``load_weights`` and the port's ``load_npz_tree``
+    both read it."""
+    flat = {}
+
+    def rec(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(v, prefix + [k])
+        else:
+            flat["/".join(prefix)] = np.asarray(node)
+
+    rec(tree, [])
+    np.savez(path, **flat)
 
 
 # --------------------------------------------------------------------------

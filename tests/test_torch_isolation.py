@@ -1,8 +1,10 @@
-"""The port stands alone: it imports, builds the CLI's configuration and
-solves an assignment with both ``jax`` and the JAX package blocked, no
-source of it (nor chip_smoke.py) imports the JAX package or reads one of
-its files, and its own copies of the JAX-free modules (config, class_ids,
-utils/masks, csrc/lapjv.cpp) hold the same values as the originals."""
+"""The port stands alone: it imports, builds the CLI's configuration,
+solves an assignment and runs a training forward and backward with both
+``jax`` and the JAX package blocked, no source of it (nor chip_smoke.py)
+imports the JAX package or reads one of its files, and its own copies of
+the JAX-free modules (config, class_ids, utils/masks, csrc/lapjv.cpp,
+data/training.py, data/synthetic.py, evaluation.py) hold the same values as
+the originals."""
 
 import ast
 import dataclasses
@@ -109,6 +111,48 @@ def test_no_source_imports_or_reads_the_jax_package():
                     rel, node.lineno)
 
 
+def test_training_runs_with_jax_and_the_jax_package_blocked():
+    """The train CLI imports, and a small CPU forward_train and backward
+    run, with nothing of JAX importable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.modules['{JAX_PKG}'] = None\n"
+        "import numpy as np, torch\n"
+        "from object_detection_tracking_tpu_torch.cli import main\n"
+        "from object_detection_tracking_tpu_torch.config import "
+        "DetectorConfig\n"
+        "from object_detection_tracking_tpu_torch.models import get_model\n"
+        "from object_detection_tracking_tpu_torch.params import "
+        "init_params, params_from_jax\n"
+        "args = main.get_args(['train', '--device', 'cpu', '--add_mask'])\n"
+        "cfg = DetectorConfig(num_class=4, resnet_depth=18, "
+        "short_edge_size=48, max_size=64, rpn_train_post_nms_topk=32, "
+        "rpn_batch_per_im=32, fastrcnn_batch_per_im=16, "
+        "compute_dtype='float32', is_train=True, add_mask=True, "
+        "roi_align_train_impl='pallas')\n"
+        "m = params_from_jax(init_params(cfg), get_model(cfg))\n"
+        "rng = np.random.RandomState(0)\n"
+        "img = torch.from_numpy(rng.randint(0, 255, (2, 48, 64, 3))"
+        ".astype(np.uint8))\n"
+        "gt = torch.tensor([[[4., 5., 20., 30.]]] * 2)\n"
+        "losses = m.forward_train(img, gt, torch.ones(2, 1, dtype=torch.int32),"
+        " torch.ones(2, 1, dtype=torch.bool), "
+        "gt_masks=torch.ones(2, 1, 28, 28), "
+        "generator=torch.Generator().manual_seed(0))\n"
+        "losses['total_loss'].backward()\n"
+        "assert torch.isfinite(losses['total_loss']), losses\n"
+        "assert m.maskrcnn.fcn0.weight.grad.abs().sum() > 0\n"
+        f"bad = [k for k, v in sys.modules.items() if v is not None and "
+        f"(k == 'jax' or k.startswith('jax.') or k == '{JAX_PKG}' or "
+        f"k.startswith('{JAX_PKG}.'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _properties(cls):
     return sorted(n for n, v in vars(cls).items() if isinstance(v, property))
 
@@ -141,6 +185,10 @@ def test_config_presets_equal_jax(kind, arg):
 def test_tracker_config_and_resnet_arch_equal_jax():
     assert dataclasses.asdict(tconfig.TrackerConfig()) == \
         dataclasses.asdict(jconfig.TrackerConfig())
+    assert dataclasses.asdict(tconfig.TrainConfig()) == \
+        dataclasses.asdict(jconfig.TrainConfig())
+    assert [f.name for f in dataclasses.fields(tconfig.TrainConfig)] == \
+        [f.name for f in dataclasses.fields(jconfig.TrainConfig)]
     assert tconfig.RESNET_ARCH == jconfig.RESNET_ARCH
     assert [f.name for f in dataclasses.fields(tconfig.DetectorConfig)] == \
         [f.name for f in dataclasses.fields(jconfig.DetectorConfig)]
@@ -163,6 +211,19 @@ def test_lapjv_source_is_the_jax_solver():
         return [ln.strip() for ln in text.splitlines() if ln.strip()]
     assert code(os.path.join(PKG, "csrc", "lapjv.cpp")) == code(
         os.path.join(ROOT, JAX_PKG, "native", "lapjv.cpp"))
+
+
+@pytest.mark.parametrize("path", ["data/training.py", "data/synthetic.py",
+                                  "evaluation.py"])
+def test_jax_free_module_copies_equal_the_originals(path):
+    """The port's copies of the JAX package's numpy/cv2 modules are the
+    same source, byte for byte (their relative imports resolve to the
+    port's own ops/boxes.py, whose get_new_hw and pairwise_iou_np are the
+    JAX module's host code, unchanged)."""
+    with open(os.path.join(PKG, path), "rb") as f:
+        got = f.read()
+    with open(os.path.join(ROOT, JAX_PKG, path), "rb") as f:
+        assert got == f.read()
 
 
 def test_masks_match_jax():

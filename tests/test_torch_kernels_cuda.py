@@ -11,7 +11,13 @@ differs. Bottleneck stage: float32 (TF32 off) within 1e-4 of the plain
 version's largest magnitude, the same float32 sums in another order;
 bf16 within 2e-2 of it, the JAX package's own bf16 bound for the Pallas
 kernel (test_resnet_stage_pallas.py:66), since one bf16 rounding of an
-intermediate that lands the other way moves everything after it."""
+intermediate that lands the other way moves everything after it.
+ROIAlign backward (B1b) against autograd of the plain version: float32
+gradients within 1e-5 of the level's largest magnitude (the same products,
+added in another order, by atomics in an order that changes from run to
+run); bf16 gradients are those float32 sums rounded once, so two sums a
+hair apart may round to neighbouring bf16 values: within one bf16 step
+(2^-7 of the value) plus that float32 bound."""
 
 import dataclasses
 
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 
 from object_detection_tracking_tpu_torch.config import DetectorConfig
 from object_detection_tracking_tpu_torch.models import get_model
+from object_detection_tracking_tpu_torch.models import faster_rcnn as FR
 from object_detection_tracking_tpu_torch.models.layers import (Conv, conv2d,
                                                                deconv2d)
 from object_detection_tracking_tpu_torch.models.resnet import Bottleneck
@@ -337,3 +344,130 @@ def test_forward_with_fused_backbone_matches_unfused(cuda):
     a, b = fused(imgs), plain(imgs)
     assert torch.equal(a["final_valid"], b["final_valid"])
     assert torch.equal(a["final_labels"], b["final_labels"])
+
+
+# --------------------------------------------------------------------------
+# B1b: the ROIAlign backward kernel
+
+
+def bwd_check(feats, boxes, pool, seed=3):
+    """B1b against autograd of the plain version on one upstream gradient;
+    returns the kernel's gradients."""
+    b, n = boxes.shape[:2]
+    c = feats[0].shape[-1]
+    g = torch.from_numpy(np.random.RandomState(seed).randn(
+        b, n, pool, pool, c).astype(np.float32)).to(boxes.device)
+    lvl = RA.fpn_map_rois_to_levels(boxes)
+    before = RA.multilevel_roi_align_backward_cuda.launches
+    got = RA.multilevel_roi_align_backward_cuda(feats, boxes, STRIDES, pool,
+                                                g, levels=lvl)
+    torch.cuda.synchronize()
+    assert RA.multilevel_roi_align_backward_cuda.launches == before + 1
+    ref = RA.multilevel_roi_align_vjp(feats, boxes, STRIDES, pool, g,
+                                      levels=lvl)
+    for f, gk, gr in zip(feats, got, ref):
+        assert gk.shape == gr.shape == f.shape and gk.dtype == f.dtype
+        gk, gr = gk.float(), gr.float()
+        tol = 1e-5 * gr.abs().max().item()
+        if f.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * gr.abs()
+        assert ((gk - gr).abs() <= tol).all()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool,n,case", [
+    (7, 300, "c256"), (14, 37, "c256"),
+    (7, 40, "c64"),
+    (7, 40, "c36"),          # C off the vector width: scalar atomics
+    (7, 1, "c256"),          # one ROI
+    (7, 64, "p2_edge"),      # aspect-5 boxes over p2's edge at 1088x1920
+    (14, 64, "p2_edge"),
+    (7, 500, "one_pixel"),   # every ROI on the same few pixels
+])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, pool, n, case):
+    dt = getattr(torch, dtype)
+    if case == "p2_edge":
+        feats, boxes, _ = p2_edge_inputs(cuda, dt, n)
+        crosses = (boxes[..., :2] < 0).any(-1) | (boxes[..., 2] > 1920) \
+            | (boxes[..., 3] > 1088)
+        assert crosses.float().mean().item() >= 0.1
+    else:
+        c = {"c64": 64, "c36": 36}.get(case, 256)
+        feats, boxes, _ = inputs(cuda, dt, n=n, c=c)
+    if case == "one_pixel":
+        # 8x8-pixel boxes at one spot (2x2 pixels of p2): 500 ROIs x 49
+        # bins x 16 taps add into the same 4x4 pixels per channel
+        boxes[:] = torch.tensor([40.0, 40.0, 48.0, 48.0], device=cuda)
+    got = bwd_check(feats, boxes, pool)
+    if case == "one_pixel":
+        assert got[0].float().abs().amax(-1).gt(0).sum().item() <= 2 * 16
+
+
+@pytest.mark.cuda
+def test_trainable_roi_align_runs_both_kernels(cuda):
+    """multilevel_roi_align_trainable on CUDA tensors: B1 forward, B1b
+    backward, feature gradients as autograd of the plain version; boxes
+    that require grad raise."""
+    feats, boxes, _ = inputs(cuda, torch.float32, n=50)
+    feats = [f.requires_grad_(True) for f in feats]
+    f0, b0 = RA.multilevel_roi_align_cuda.launches, \
+        RA.multilevel_roi_align_backward_cuda.launches
+    out = RA.multilevel_roi_align_trainable(feats, boxes, STRIDES, 7)
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert RA.multilevel_roi_align_cuda.launches == f0 + 1
+    assert RA.multilevel_roi_align_backward_cuda.launches == b0 + 1
+    ref = RA.multilevel_roi_align_vjp(feats, boxes, STRIDES, 7, g)
+    for f, r in zip(feats, ref):
+        assert (f.grad - r).abs().max() <= 1e-5 * r.abs().max()
+    with pytest.raises(ValueError):
+        RA.multilevel_roi_align_trainable(
+            feats, boxes.clone().requires_grad_(True), STRIDES, 7)
+
+
+@pytest.mark.cuda
+def test_train_step_runs_no_plain_roi_align(cuda, monkeypatch):
+    """A small R18 forward_train + backward on the card with the train
+    CLI's roi_align_train_impl="pallas" and add_mask: B1 and B1b each
+    launch twice (box head, mask head) and the plain ROIAlign and its
+    autograd never run."""
+    cfg = DetectorConfig(num_class=4, resnet_depth=18, short_edge_size=48,
+                         max_size=64, rpn_train_post_nms_topk=32,
+                         rpn_batch_per_im=32, fastrcnn_batch_per_im=16,
+                         compute_dtype="bfloat16", is_train=True, freeze=-1,
+                         add_mask=True, roi_align_train_impl="pallas")
+    model = params_from_jax(init_params(cfg, seed=0), get_model(cfg))
+    model.to(cuda)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain ROIAlign ran on the card")
+    monkeypatch.setattr(RA, "multilevel_roi_align", plain)
+    monkeypatch.setattr(RA, "multilevel_roi_align_vjp", plain)
+    monkeypatch.setattr(FR, "multilevel_roi_align", plain)
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.randint(0, 255, (2, 48, 64, 3)).astype(
+        np.uint8)).to(cuda)
+    xy = rng.uniform(0, 30, (2, 4, 2))
+    wh = rng.uniform(6, 16, (2, 4, 2))
+    gt = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.randint(1, 4, (2, 4))).to(cuda)
+    valid = torch.ones(2, 4, dtype=torch.bool, device=cuda)
+    masks = torch.ones(2, 4, 28, 28, device=cuda)
+    f0, b0 = RA.multilevel_roi_align_cuda.launches, \
+        RA.multilevel_roi_align_backward_cuda.launches
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    losses = model.forward_train(imgs, gt, labels, valid, gt_masks=masks,
+                                 generator=gen)
+    losses["total_loss"].backward()
+    torch.cuda.synchronize()
+    assert RA.multilevel_roi_align_cuda.launches == f0 + 2
+    assert RA.multilevel_roi_align_backward_cuda.launches == b0 + 2
+    assert all(torch.isfinite(v) for v in losses.values())
+    # bf16 activations, float32 parameters: float32 gradients, as jax.grad
+    for p in (model.fpn.posthoc_3x3_p2.weight, model.maskrcnn.fcn0.weight,
+              model.resnet.group0.block0.conv1.bn.gamma):
+        assert p.grad.dtype == torch.float32
+        assert torch.isfinite(p.grad).all()
