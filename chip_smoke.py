@@ -58,7 +58,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                per step; the step's time split (forward+loss, backward,
                optimizer) by CUDA events and the peak device memory; B1
                and B1b redone on a step's own inputs against the plain
-               version and its autograd, timed as in phase 3; one f32 step
+               version and its autograd, timed as in phase 3 (B1b: two
+               launches bitwise equal, no allocation beyond its
+               gradients, only its own two kernels in its profile); one
+               f32 step
                with the kernels against the plain ROIAlign's autograd
                (losses, every gradient leaf)
 Then one JSON line of kernels, the card line, and the last line:
@@ -109,7 +112,7 @@ KERNEL_ATOL = 1e-4
 # timed steps after them
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_TIMED = 2, 8, 5
 # B1b vs plain autograd, as a share of the level's max |plain|: the same
-# float32 products, added in another order (atomics); see
+# float32 products, added in another (fixed) order; see
 # tests/test_torch_kernels_cuda.py
 B1B_REL = 1e-5
 # one f32 train step, trainable kernels vs the plain ROIAlign's autograd:
@@ -432,20 +435,48 @@ def roi_bwd_bound_ms(feats, boxes, strides, pool):
     return 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS)
 
 
-def roi_bwd_design_ms(feats, boxes, strides, pool):
-    """The bytes that B1b's design adds to the bound (roi_bwd_bound_ms),
-    over the memory rate: the float32 workspace zeroed, each workspace pixel
-    that the boxes' samples touch read and written once more by the
-    scatter's atomics, and for bf16 features the workspace read again by
-    the cast. Not a bound of the function: another design (bf16 atomics,
-    or a gather by pixel) need not move them."""
+def roi_bwd_design_ms(feats, boxes, strides, pool, levels):
+    """The bytes that B1b's design moves beyond its bound
+    (roi_bwd_bound_ms), over the memory rate: each output tile block
+    (RA.BWD_TILE pixels) reads the grad_out rows of the bins whose taps
+    reach it, so a bin whose taps reach k > 1 tiles is read k - 1 times more
+    than once; and the plan's scratch (16 bytes per ROI, 4 per tile) is
+    written and read once. The tile blocks' scans of the footprints hit L2
+    and are not counted. Not a bound of the function: a design that reads
+    each bin once need not move them."""
     import torch
-    b, n = boxes.shape[:2]
-    valid = torch.ones(b, n, dtype=torch.bool, device=boxes.device)
-    elems = sum(f.numel() for f in feats)
-    touched = roi_touched_bytes(feats, boxes, valid, strides, pool, 4)
-    cast = 4 * elems if feats[0].dtype != torch.float32 else 0
-    return 1e3 * (4 * elems + 2 * touched + cast) / PEAK_BYTES
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    dev = boxes.device
+    lvl = levels.long().clamp(0, len(feats) - 1)
+    stride = torch.tensor(list(strides), dtype=torch.float32, device=dev)
+    fb = boxes / stride[lvl][..., None]
+
+    def tiles_per_bin(lo, hi, extent, tile):
+        """[B, N, pool]: the tile rows (or columns) that each bin row's
+        taps reach."""
+        s = RA._sample_grid(lo, hi, 2 * pool)
+        ext = extent[lvl][..., None]
+        inside = (s >= 0) & (s <= (ext - 1).float())
+        low = torch.minimum(torch.floor(s).long().clamp_min(0), ext - 1)
+        up = torch.minimum(low + 1, ext - 1)
+        t = torch.stack([low // tile, up // tile], -1)     # [B, N, 2P, 2]
+        t = torch.where(inside[..., None], t, -1)
+        t = t.reshape(*t.shape[:2], pool, 4).sort(-1).values
+        new = torch.cat([t[..., :1] >= 0, (t[..., 1:] != t[..., :-1])
+                         & (t[..., 1:] >= 0)], -1)
+        return new.sum(-1)
+    th, tw = RA.BWD_TILE
+    ny = tiles_per_bin(fb[..., 1], fb[..., 3], torch.tensor(
+        [f.shape[1] for f in feats], device=dev), th)
+    nx = tiles_per_bin(fb[..., 0], fb[..., 2], torch.tensor(
+        [f.shape[2] for f in feats], device=dev), tw)
+    tiles = ny[..., :, None] * nx[..., None, :]             # [B, N, P, P]
+    c = feats[0].shape[-1]
+    rereads = int((tiles - 1).clamp_min(0).sum().item()) * c * 4
+    pairs = boxes.shape[0] * sum(-(-f.shape[1] // th) * -(-f.shape[2] // tw)
+                                 for f in feats)
+    scratch = 16 * boxes.shape[0] * boxes.shape[1] + 4 * pairs
+    return 1e3 * (rereads + 2 * scratch) / PEAK_BYTES
 
 
 def forward_kernel_inputs(model, x, out):
@@ -819,11 +850,13 @@ def stage_work(n, h, w, c_in, width, elem_bytes):
             kinds)
 
 
-def device_ms(fn, names, runs=3):
+def device_ms(fn, names, runs=3, others=None):
     """Device time per call of fn's kernels whose names hold each of
     ``names`` ({group: substring}): torch.profiler over `runs` calls, after
     one profiled warm-up call. Only the kernels' own time: no host
-    preamble, no allocation. Returns {group: ms}."""
+    preamble, no allocation. Returns {group: ms}; the names of the other
+    device activities (kernels, memsets, copies) with time are appended to
+    ``others`` when given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -837,9 +870,13 @@ def device_ms(fn, names, runs=3):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
+        hit = False
         for group, name in names.items():
             if name in e.key:
                 out[group] += e.self_device_time_total / 1e3 / runs
+                hit = True
+        if not hit and others is not None and e.self_device_time_total > 0:
+            others.append(e.key)
     return out
 
 
@@ -1328,9 +1365,12 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
     path: within one bf16 step of each value plus B1B_REL of the level's
     largest magnitude (both round float32 sums that differ only in their
     order); the same launch with the features in float32: within B1B_REL
-    of the level's largest magnitude. Times: the wrapper's CUDA-event time
-    and the plain version's (median of 15), the kernels' device time
-    (torch.profiler: zero fill, scatter, cast), the bound."""
+    of the level's largest magnitude. Two launches agree bit for bit (each
+    element has one writer, adding in a fixed order). One call allocates
+    nothing beyond its gradients and a small scratch, and its profile holds
+    the plan and tile kernels alone, each with time. Times: the
+    wrapper's CUDA-event time and the plain version's (median of 15), the
+    kernels' device time (torch.profiler), the bound."""
     import torch
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
 
@@ -1358,26 +1398,53 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
             err = max(err, d.max().item())
             share = max(share, d.max().item() / max(scale, 1e-30))
         entry[f"err_{name}"], entry[f"share_{name}"] = err, share
-        del got, ref
+        again = kernel(fs)
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(got, again)):
+            raise AssertionError(f"train roi_align_backward {label} {name}: "
+                                 f"two launches differ")
+        del got, ref, again
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = kernel()
+    torch.cuda.synchronize()
+    entry["alloc_bytes"] = torch.cuda.max_memory_allocated() - base
+    grad_bytes = sum(g.numel() * g.element_size() for g in got)
+    del got
+    # the gradients; the scratch (16 bytes per ROI, 4 per tile) and the
+    # allocator's rounding fit in 2 MiB
+    if entry["alloc_bytes"] > grad_bytes + 2 ** 21:
+        raise AssertionError(f"train roi_align_backward {label}: one call "
+                             f"allocated {entry['alloc_bytes']} bytes for "
+                             f"{grad_bytes} bytes of gradients")
     entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
-    dev = device_ms(kernel, {"scatter": "roi_align_bwd", "cast": "cast_bf16",
-                             "zero": "Memset"}, runs=15)
+    others = []
+    dev = device_ms(kernel, {"plan": "roi_bwd_plan",
+                             "tiles": "roi_align_bwd_tile"}, runs=15,
+                    others=others)
+    if others or not all(v > 0 for v in dev.values()):
+        raise AssertionError(f"train roi_align_backward {label}: profile "
+                             f"{dev}, other device work {sorted(set(others))}")
     entry["device_ms"] = sum(dev.values())
     entry["device_by_part"] = dev
     entry["bound_ms"] = roi_bwd_bound_ms(feats, boxes, strides, pool)
     entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
-    entry["design_bytes_ms"] = roi_bwd_design_ms(feats, boxes, strides, pool)
+    entry["design_bytes_ms"] = roi_bwd_design_ms(feats, boxes, strides, pool,
+                                                 levels)
     log("train", f"roi_align_backward on the step's own inputs, {label}: max "
         f"|kernel - plain| {entry['err_bf16']:.3g} bf16 (bound: one bf16 "
         f"step + {B1B_REL} x max |plain|), {entry['err_f32']:.3g} f32 "
-        f"({entry['share_f32']:.3g} of max |plain|, bound {B1B_REL}); "
+        f"({entry['share_f32']:.3g} of max |plain|, bound {B1B_REL}); two "
+        f"launches bitwise equal; one call allocates "
+        f"{entry['alloc_bytes']} bytes ({grad_bytes} of gradients); "
         f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms "
         f"(median of 15, CUDA events), device {entry['device_ms']:.4f} ms "
         f"(torch.profiler, mean of 15: " + ", ".join(
             f"{k} {v:.4f}" for k, v in dev.items()) + f"), bound "
         f"{entry['bound_ms']:.4f} ms (bytes), {entry['bound_share']:.1%} "
-        f"of it; the design's workspace adds {entry['design_bytes_ms']:.4f} "
-        f"ms of bytes (zero fill, atomics' re-read, cast's read)")
+        f"of it; the tiles' grad_out re-reads and the plan's scratch add "
+        f"{entry['design_bytes_ms']:.4f} ms of bytes")
     return entry
 
 
@@ -1553,9 +1620,10 @@ def main():
                    "with the features in float32, max_abs_err_bf16 on the "
                    "path's bf16; ms, device_ms, plain_ms, bound_ms summed "
                    "over the two; bound_ms: grad_out read and the gradients "
-                   "written once; design_bytes_ms: the float32 workspace's "
-                   "zero fill, atomics' re-read and cast read over the "
-                   "memory rate, the design's overhead against bound_ms"},
+                   "written once; design_bytes_ms: grad_out rows re-read by "
+                   "each further output tile their taps reach, and the "
+                   "plan's scratch, over the memory rate, the design's "
+                   "overhead against bound_ms"},
         {"name": "bottleneck_stage", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/"
                    "bottleneck_stage.cu",

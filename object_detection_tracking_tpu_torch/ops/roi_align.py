@@ -158,6 +158,42 @@ def multilevel_roi_align_vjp(features: Sequence[torch.Tensor],
         return list(torch.autograd.grad(out, feats, grad_out))
 
 
+def roi_tap_footprint(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                      strides: Sequence[int], output_size: int,
+                      levels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per ROI, the inclusive rows and columns ``(r0, r1, c0, c1)`` that its
+    bilinear taps reach on its level: from the lower neighbour of its first
+    in-map sample to the upper neighbour (clamped at H-1, W-1) of its last,
+    per axis, in ``multilevel_roi_align``'s float32 sample formula;
+    ``(0, -1, 0, -1)`` when no sample on one of the axes lies in the map.
+    The plain version of kernel B1b's footprint pass, which decides which
+    output tiles an ROI reaches; only the features' shapes are read.
+    Returns int64 [B, N, 4]."""
+    dev = boxes.device
+    lvl = fpn_map_rois_to_levels(boxes) if levels is None else levels
+    lvl = lvl.long().clamp(0, len(features) - 1)
+    stride = torch.tensor(list(strides), dtype=torch.float32, device=dev)
+    h = torch.tensor([f.shape[1] for f in features], device=dev)[lvl]
+    w = torch.tensor([f.shape[2] for f in features], device=dev)[lvl]
+    fb = boxes / stride[lvl][..., None]
+
+    def span(lo, hi, extent):
+        s = _sample_grid(lo, hi, 2 * output_size)
+        ext = extent[..., None]
+        inside = (s >= 0) & (s <= (ext - 1).float())
+        low = torch.minimum(torch.floor(s).long().clamp_min(0), ext - 1)
+        first = torch.where(inside, low, ext).amin(-1)
+        last = torch.minimum(torch.where(inside, low, -1).amax(-1) + 1,
+                             extent - 1)
+        return first, last, inside.any(-1)
+
+    r0, r1, in_y = span(fb[..., 1], fb[..., 3], h)
+    c0, c1, in_x = span(fb[..., 0], fb[..., 2], w)
+    empty = torch.tensor([0, -1, 0, -1], device=dev)
+    return torch.where((in_y & in_x)[..., None],
+                       torch.stack([r0, r1, c0, c1], -1), empty)
+
+
 # --------------------------------------------------------------------------
 # CUDA kernel wrappers (csrc/roi_align.cu)
 
@@ -165,8 +201,9 @@ def multilevel_roi_align_vjp(features: Sequence[torch.Tensor],
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 12 + [_P] * 4 + [_I] * 5 + [_P]
-_BWD_ARGTYPES = [_P] * 2 + [_I] * 12 + [_P] * 3 + [_I] * 5 + [_P]
+_BWD_ARGTYPES = [_P] * 2 + [_I] * 13 + [_P] * 3 + [_I] * 5 + [_P]
 _MAX_POOL = 32   # 2P <= 64 samples per axis: two per lane of a warp
+BWD_TILE = (4, 16)   # B1b's output tile, pixels (kTileH, kTileW in csrc)
 
 
 def _cuda_fn(name: str, argtypes):
@@ -266,10 +303,11 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
     each feature level through the hand-written CUDA kernel B1b; same
     arguments and result as ``multilevel_roi_align_vjp``. A CPU tensor takes
     that plain version; a CUDA tensor launches the kernel on the current
-    stream (zero fill, scatter with float atomics, cast to bf16 for bf16
-    features; no sync) or raises. The float32 workspace is the result for
-    float32 features. ``multilevel_roi_align_backward_cuda.launches``
-    counts the launches."""
+    stream (a plan: the ROIs' tap footprints and the output tiles, most
+    ROIs first; then one block per output tile that accumulates in shared
+    memory and writes the tile once in the features' dtype; no sync) or
+    raises. Bitwise the same from run to run.
+    ``multilevel_roi_align_backward_cuda.launches`` counts the launches."""
     if boxes.device.type == "cpu":
         return multilevel_roi_align_vjp(features, boxes, strides, output_size,
                                         grad_out, levels=levels)
@@ -281,16 +319,27 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
                          f"{(b, n, p, p, c)} on the boxes' device")
     grad_out = grad_out.contiguous()
     lvl = fpn_map_rois_to_levels(boxes) if levels is None else levels
-    lvl = lvl.to(torch.int32).clamp(0, 3).contiguous()
+    if lvl.shape != (b, n) or lvl.device != boxes.device:
+        raise ValueError(f"levels must be [B, N] = {(b, n)} on the boxes' "
+                         f"device")
+    lvl = lvl.to(torch.int32).contiguous()   # the kernel clamps into 0..3
     sizes = [b * f.shape[1] * f.shape[2] * c for f in features]
-    work = torch.empty(sum(sizes), dtype=torch.float32, device=boxes.device)
-    out = work if dtype == torch.float32 else torch.empty(
-        sum(sizes), dtype=dtype, device=boxes.device)
+    out = torch.empty(sum(sizes), dtype=dtype, device=boxes.device)
+    grads = [g.view(f.shape) for g, f in zip(out.split(sizes), features)]
+    if out.numel() == 0:
+        return grads
+    # the kernel's scratch: each ROI's footprint (4 int32), the order of the
+    # (image, tile) pairs, and a work queue
+    th, tw = BWD_TILE
+    pairs = b * sum(-(-f.shape[1] // th) * -(-f.shape[2] // tw)
+                    for f in features)
+    scratch = torch.empty(4 * b * n + pairs + 1, dtype=torch.int32,
+                          device=boxes.device)
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
     err = _cuda_fn("roi_align_backward", _BWD_ARGTYPES)(
-        work.data_ptr(), None if out is work else out.data_ptr(), *dims,
+        out.data_ptr(), scratch.data_ptr(), scratch.numel(), *dims,
         *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
         grad_out.data_ptr(), b, n, c, p, int(dtype == torch.bfloat16),
         torch.cuda.current_stream(boxes.device).cuda_stream)
@@ -298,7 +347,7 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
         raise RuntimeError(
             f"roi_align backward kernel launch failed: CUDA error {err}")
     multilevel_roi_align_backward_cuda.launches += 1
-    return [g.view(f.shape) for g, f in zip(out.split(sizes), features)]
+    return grads
 
 
 multilevel_roi_align_backward_cuda.launches = 0

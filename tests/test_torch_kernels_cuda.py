@@ -14,9 +14,9 @@ kernel (test_resnet_stage_pallas.py:66), since one bf16 rounding of an
 intermediate that lands the other way moves everything after it.
 ROIAlign backward (B1b) against autograd of the plain version: float32
 gradients within 1e-5 of the level's largest magnitude (the same products,
-added in another order, by atomics in an order that changes from run to
-run); bf16 gradients are those float32 sums rounded once, so two sums a
-hair apart may round to neighbouring bf16 values: within one bf16 step
+added in another order: the kernel's is fixed, so two launches agree bit
+for bit); bf16 gradients are those float32 sums rounded once, so two sums
+a hair apart may round to neighbouring bf16 values: within one bf16 step
 (2^-7 of the value) plus that float32 bound."""
 
 import dataclasses
@@ -60,7 +60,8 @@ def inputs(dev, dtype, b=2, n=300, c=256, h=256, w=384, seed=11):
                       np.minimum(y0 + s / np.sqrt(ar), h)], -1)
     edge = [[0, 0, 0, 0], [0, 0, w, h], [w - 4, h - 4, w, h],
             [50, 20, 50, 40]]
-    boxes[0, :4] = edge[:n]
+    if n:
+        boxes[0, :4] = edge[:n]
     valid = rng.rand(b, n) > 0.3
     return (feats, torch.from_numpy(boxes.astype(np.float32)).to(dev),
             torch.from_numpy(valid).to(dev))
@@ -358,6 +359,11 @@ def bwd_check(feats, boxes, pool, seed=3):
     g = torch.from_numpy(np.random.RandomState(seed).randn(
         b, n, pool, pool, c).astype(np.float32)).to(boxes.device)
     lvl = RA.fpn_map_rois_to_levels(boxes)
+    # leave NaN where the gradients will be allocated: every element the
+    # kernel does not write shows
+    junk = torch.full((sum(f.numel() for f in feats),), float("nan"),
+                      dtype=feats[0].dtype, device=boxes.device)
+    del junk
     before = RA.multilevel_roi_align_backward_cuda.launches
     got = RA.multilevel_roi_align_backward_cuda(feats, boxes, STRIDES, pool,
                                                 g, levels=lvl)
@@ -375,34 +381,141 @@ def bwd_check(feats, boxes, pool, seed=3):
     return got
 
 
+def pyramid(dev, dtype, h, w, c=256, b=2, seed=13):
+    """Unit-normal features of a p2 map of h x w pixels and the three
+    levels above it (image 4h x 4w)."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, h >> i, w >> i, c)
+                             .astype(np.float32)).to(dev, dtype)
+            for i in range(4)]
+
+
+def tile_edge_boxes(case, dev):
+    """[2, n, 4] boxes for the cases that B1b's output tiles (RA.BWD_TILE
+    pixels) can get wrong."""
+    th, tw = RA.BWD_TILE
+    if case == "p5_whole":
+        # p5 boxes over the whole 1088x1920 image: each footprint spans
+        # every tile of p5 (34 x 60, its last tiles partial)
+        boxes = [[0, 0, 1920, 1088], [-50, -40, 1990, 1130],
+                 [1, 3, 1917, 1085], [0, 0, 1920, 600]]
+    elif case == "tile_border":
+        # p2 point and 4-pixel boxes whose footprints start or end on a
+        # tile border, or straddle one: a zero-area box at image coordinate
+        # v = 4k samples p2 at k - 0.5, so its rows are (k - 1, k)
+        pts = [4 * (th - 1), 4 * th, 4 * (th + 1), 4 * (tw - 1), 4 * tw,
+               4 * (tw + 1)]
+        boxes = [[x, y, x + dx, y + dy] for x in pts for y in pts
+                 for dx in (0, 16) for dy in (0, 16)]
+    else:
+        assert case == "last_row_col"
+        # p2 of 70 x 100 (its last tiles partial): boxes whose samples lie
+        # exactly on row 69 / column 99, where both neighbours are one
+        # pixel, and boxes that end on the image's corner at every level
+        h, w = 4 * 70, 4 * 100
+        boxes = [[w - 2, h - 2, w - 2, h - 2], [20, h - 2, 200, h - 2],
+                 [w - 2, 10, w - 2, 150]]
+        boxes += [[w - s, h - s, w, h] for s in (3, 9, 40, 100, 250)]
+        boxes += [[w - s, 0, w, h] for s in (8, 30)]
+    t = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    return torch.stack([t, t.flip(0)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pool,n,case", [
     (7, 300, "c256"), (14, 37, "c256"),
     (7, 40, "c64"),
-    (7, 40, "c36"),          # C off the vector width: scalar atomics
+    (7, 40, "c36"),          # C off the 8-channel store: 8-byte bf16 stores
+    (7, 40, "c30"),          # C off the vector width: the scalar path
     (7, 1, "c256"),          # one ROI
     (7, 64, "p2_edge"),      # aspect-5 boxes over p2's edge at 1088x1920
     (14, 64, "p2_edge"),
     (7, 500, "one_pixel"),   # every ROI on the same few pixels
+    (7, 4, "p5_whole"),      # a footprint over every tile of p5
+    (14, 4, "p5_whole"),
+    (7, 144, "tile_border"),  # footprints that end on a tile's border
+    (7, 10, "last_row_col"),  # taps on row H-1 and column W-1
+    (14, 10, "last_row_col"),
+    (7, 30, "p2_only"),      # p3..p5 reached by no ROI: all zeros
+    (7, 0, "n0"),            # no ROI at all: every level zeros
+    (7, 64, "unplanned"),    # B=4: too many tiles to order, all scan
 ])
 def test_roi_align_backward_kernel_matches_plain(cuda, dtype, pool, n, case):
     dt = getattr(torch, dtype)
-    if case == "p2_edge":
+    if case == "unplanned":
+        feats, boxes, _ = p2_edge_inputs(cuda, dt, n, b=4)
+        th, tw = RA.BWD_TILE
+        assert 4 * sum(-(-f.shape[1] // th) * -(-f.shape[2] // tw)
+                       for f in feats) > 8192   # kPlanMaxPairs
+    elif case == "p2_edge":
         feats, boxes, _ = p2_edge_inputs(cuda, dt, n)
         crosses = (boxes[..., :2] < 0).any(-1) | (boxes[..., 2] > 1920) \
             | (boxes[..., 3] > 1088)
         assert crosses.float().mean().item() >= 0.1
+    elif case in ("p5_whole", "tile_border", "last_row_col"):
+        boxes = tile_edge_boxes(case, cuda)
+        assert boxes.shape[1] == n
+        feats = pyramid(cuda, dt, *((70, 100) if case == "last_row_col"
+                                    else (272, 480)))
     else:
-        c = {"c64": 64, "c36": 36}.get(case, 256)
+        c = {"c64": 64, "c36": 36, "c30": 30}.get(case, 256)
         feats, boxes, _ = inputs(cuda, dt, n=n, c=c)
+    lvl = RA.fpn_map_rois_to_levels(boxes)
+    fp = RA.roi_tap_footprint(feats, boxes, STRIDES, pool, levels=lvl)
     if case == "one_pixel":
         # 8x8-pixel boxes at one spot (2x2 pixels of p2): 500 ROIs x 49
         # bins x 16 taps add into the same 4x4 pixels per channel
         boxes[:] = torch.tensor([40.0, 40.0, 48.0, 48.0], device=cuda)
+    elif case == "p2_only":
+        boxes[..., 2:] = boxes[..., :2] + 6.0
+        assert (RA.fpn_map_rois_to_levels(boxes) == 0).all()
+    elif case == "p5_whole":
+        # the first and third box reach every tile row and column of p5
+        th, tw = RA.BWD_TILE
+        whole = fp[0, [0, 2]]
+        assert (lvl == 3).all() and (whole[:, 0] < th).all() \
+            and (whole[:, 1] >= 34 // th * th).all() \
+            and (whole[:, 2] < tw).all() \
+            and (whole[:, 3] >= 60 // tw * tw).all()
+    elif case == "tile_border":
+        th, tw = RA.BWD_TILE
+        assert (fp[..., 1] % th == th - 1).any() \
+            and (fp[..., 0] % th == 0).any() \
+            and (fp[..., 3] % tw == tw - 1).any() \
+            and (fp[..., 2] % tw == 0).any()
+    elif case == "last_row_col":
+        assert (fp[..., 1] == 69).any() and (fp[..., 3] == 99).any()
     got = bwd_check(feats, boxes, pool)
     if case == "one_pixel":
         assert got[0].float().abs().amax(-1).gt(0).sum().item() <= 2 * 16
+    if case == "p2_only":
+        assert all((g == 0).all() for g in got[1:])
+    if case == "n0":
+        assert all((g == 0).all() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["p2_edge", "one_pixel"])
+def test_roi_align_backward_kernel_is_deterministic(cuda, dtype, case):
+    """Each gradient element has one writer, which adds its taps in a fixed
+    order: two launches on the same inputs agree bit for bit, also where
+    500 ROIs add into the same pixels."""
+    dt = getattr(torch, dtype)
+    feats, boxes, _ = p2_edge_inputs(cuda, dt, 500)
+    if case == "one_pixel":
+        boxes[:] = torch.tensor([40.0, 40.0, 48.0, 48.0], device=cuda)
+    g = torch.from_numpy(np.random.RandomState(4).randn(
+        *boxes.shape[:2], 7, 7, 256).astype(np.float32)).to(cuda)
+    a = RA.multilevel_roi_align_backward_cuda(feats, boxes, STRIDES, 7, g)
+    b = RA.multilevel_roi_align_backward_cuda(feats, boxes, STRIDES, 7, g)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int16 if dt == torch.bfloat16
+                                  else torch.int32),
+                           y.view(torch.int16 if dt == torch.bfloat16
+                                  else torch.int32))
 
 
 @pytest.mark.cuda
