@@ -15,7 +15,11 @@ Phases, one result line each; any failure raises and the exit code is not 0:
   3. kernels   ROIAlign kernel vs the plain version at the main path's
                shapes (B=8, the 736x1280 FPN pyramid, C=256, P=7, N=1000
                and N=100), f32 and bf16 features, ~30% invalid slots,
-               zero-area, edge and aspect-5 boxes; median CUDA-event times
+               zero-area, edge and aspect-5 boxes; and in EfficientDet's
+               mode (five levels P3..P7, explicit per-ROI levels, mostly
+               not the canonical ones) at d0's shapes (512x512, C=64) and
+               d6's (1280x1280, C=384), B=8, N=100, with zero boxes on
+               level 0 and boxes on P7's edge; median CUDA-event times
                of the wrapper's call, the kernel's own device time
                (torch.profiler) and its share of the bound
   4. main path R50-FPN partial-COCO at full width (random weights from seed
@@ -64,6 +68,20 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                f32 step
                with the kernels against the plain ROIAlign's autograd
                (losses, every gradient leaf)
+ 10. effdet    the CLI's EfficientDet default (--is_efficientdet, d0,
+               --use_partial_classes, top-k 5000), random weights from seed
+               0 with BN statistics calibrated on a synthetic batch, bf16,
+               B=8, frame gap 8: synthetic frames of 1280x720 fitted to
+               512x288 -> VideoEnqueuer -> DetectionRunner -> Deep SORT on
+               Person and Vehicle -> MOT files, through process_video; B1
+               must launch once per batch; then one f32 batch with the
+               kernel and with the plain ROIAlign (detections equal,
+               embeddings within the bound); then the batch's B1 launch
+               redone on its own inputs (P3..P7, final boxes, their source
+               levels) and timed; the forward's host wall and device time
+               by kernel kind; then one bf16 forward of d6 (B=8, 1280x720
+               into 1280x1280, 8 BiFPN repeats with sum fusion, C=384)
+               with its B1 launch checked the same way; peak memory
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -85,6 +103,13 @@ STRIDES = (4, 8, 16, 32)
 PYRAMID = ((184, 320), (92, 160), (46, 80), (23, 40))   # 736x1280 padded
 FRAME_H, FRAME_W, BATCH, FRAME_GAP, N_BATCHES = 720, 1280, 8, 8, 8
 ACTEV_H, ACTEV_W = 1080, 1920            # padded to 1088x1920 by the model
+# EfficientDet: P3..P7, strides 8..128; d0 fits 1280x720 into its 512 input
+# (the card has no cv2 to resize, so the synthetic frames come at that
+# size), d6 into 1280
+EFFDET_STRIDES = (8, 16, 32, 64, 128)
+EFFDET_H, EFFDET_W = 288, 512
+# phase 3's five-level B1 cases: (model, input size, C = fpn_filters)
+EFFDET_ROI_CASES = (("d0", 512, 64), ("d6", 1280, 384))
 # the ActEV path's fused stages at B=8: name, H, W, C_in, width, blocks
 STAGES = (("c2", 272, 480, 64, 64, 3), ("c3", 136, 240, 512, 128, 3),
           ("c4", 68, 120, 1024, 256, 22))
@@ -230,7 +255,78 @@ def phase_kernels():
                 f"device {d_ms:.4f} ms (torch.profiler, mean of 15), bound "
                 f"{b_ms:.4f} ms (bytes), {b_ms / d_ms:.1%} of it")
             del feats, boxes, valid, got, ref
+    for name, size, c in EFFDET_ROI_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            results[(name, dtype)] = effdet_roi_check(gen, name, size, c,
+                                                      dtype)
     return results
+
+
+def effdet_roi_case(gen, size, c, dtype, n=100):
+    """EfficientDet's B1 inputs at B=8: P3..P7 of a size x size input, n
+    boxes per image with explicit levels drawn from 0..4 (mostly not the
+    canonical level), two boxes on P7's last row and column, one whole
+    image on P3, and JAX's invalid slots: the last 10 boxes zero on level
+    0."""
+    import torch
+    feats = [torch.randn(BATCH, size // s, size // s, c, device="cuda",
+                         generator=gen).to(dtype) for s in EFFDET_STRIDES]
+    xy = torch.rand(BATCH, n, 2, device="cuda", generator=gen) * size
+    wh = 4.0 * torch.exp(torch.rand(BATCH, n, 2, device="cuda",
+                                    generator=gen) * math.log(size / 8.0))
+    boxes = torch.cat([xy, xy + wh], -1).clamp(0, size)
+    levels = torch.randint(0, 5, (BATCH, n), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    boxes[:, 0] = torch.tensor([size - 128.0, size - 128.0, size, size])
+    boxes[:, 1] = torch.tensor([0.0, size - 64.0, size / 2.0, size])
+    levels[:, :2] = 4
+    boxes[:, 2] = torch.tensor([0.0, 0.0, size, size])
+    levels[:, 2] = 0
+    boxes[:, -10:] = 0.0
+    levels[:, -10:] = 0
+    return feats, boxes.contiguous(), levels
+
+
+def effdet_roi_check(gen, name, size, c, dtype):
+    """Phase 3's five-level, explicit-level case at EfficientDet ``name``'s
+    shapes: kernel vs plain (bound KERNEL_ATOL on unit-normal features),
+    zero boxes pooled to 0, P7's edge read; times and bound as for the
+    four-level cases. Returns (err, ms, plain ms, bound ms, device ms)."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    feats, boxes, levels = effdet_roi_case(gen, size, c, dtype)
+    disagree = (levels != RA.fpn_map_rois_to_levels(boxes)).float().mean()
+
+    def kernel():
+        return RA.multilevel_roi_align_cuda(feats, boxes, EFFDET_STRIDES, 7,
+                                            levels=levels)
+
+    def plain():
+        return RA.multilevel_roi_align(feats, boxes, EFFDET_STRIDES, 7,
+                                       levels=levels)
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (got - ref).abs().max().item()
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"roi_align {name} 5 levels {dtype}: max "
+                             f"|kernel - plain| {err} > {KERNEL_ATOL}")
+    if got[:, -10:].abs().max().item() != 0.0 \
+            or got[:, :2].abs().max().item() == 0.0:
+        raise AssertionError(f"roi_align {name}: zero boxes not 0 or P7's "
+                             f"edge boxes read nothing")
+    k_ms, p_ms = median_ms([kernel, plain])
+    d_ms = roi_device_ms(kernel)
+    b_ms = roi_bound_ms(feats, boxes, torch.ones(boxes.shape[:2], dtype=torch
+                                                 .bool, device="cuda"),
+                        EFFDET_STRIDES, 7, levels)
+    log("kernels", f"roi_align {name} 5 levels P3..P7 of {size}x{size}, C={c}"
+        f", N=100, explicit levels ({disagree.item():.0%} not canonical) "
+        f"{str(dtype)[6:]}: max_abs_err {err:.3g} (bound {KERNEL_ATOL}), "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 15, CUDA "
+        f"events), kernel device {d_ms:.4f} ms (torch.profiler, mean of "
+        f"15), bound {b_ms:.4f} ms (bytes), {b_ms / d_ms:.1%} of it")
+    return err, k_ms, p_ms, b_ms, d_ms
 
 
 class SyntheticVideo:
@@ -283,9 +379,10 @@ class CheckedRunner:
     output contract, counts batches, frames and valid detections, and
     splits the wall time between the runner and its caller."""
 
-    def __init__(self, runner, r, n_labels=6, masks=False):
+    def __init__(self, runner, r, n_labels=6, masks=False, feat_dim=256):
         self.runner, self.r = runner, r
         self.n_labels, self.masks = n_labels, masks
+        self.feat_dim = feat_dim
         self.batches = self.frames = self.dets = 0
         self.by_label = {}
         # wall split: inside runner.run (batch wait, H2D, forward, D2H) and
@@ -308,7 +405,8 @@ class CheckedRunner:
                       "final_labels": ((b, r), np.int32),
                       "final_probs": ((b, r), np.float32),
                       "final_valid": ((b, r), np.bool_),
-                      "pooled_box_feat": ((b, r, 256), np.float32)}
+                      "pooled_box_feat": ((b, r, self.feat_dim),
+                                          np.float32)}
             if self.masks:
                 shapes["final_masks"] = ((b, r, 28, 28), np.float32)
             if set(host) != set(shapes):
@@ -381,42 +479,65 @@ def roi_windows(feats, boxes, valid, strides, pool):
         yield li, img[sel][keep], r0, r1, c0, c1
 
 
-def roi_touched_bytes(feats, boxes, valid, strides, pool, elem_bytes=None):
-    """Bytes of the feature pixels that the valid boxes' bilinear samples
-    touch, counted once per image and level (the union of the roi_windows
-    rectangles), at ``elem_bytes`` per channel (the features' own by
-    default)."""
+def roi_touched_bytes(feats, boxes, valid, strides, pool, elem_bytes=None,
+                      levels=None):
+    """Bytes of the feature pixels that the valid boxes' bilinear taps read
+    on their levels (``levels``, else the canonical ones), counted once per
+    image and level, at ``elem_bytes`` per channel (the features' own by
+    default). A box reads the two neighbour rows of each of its in-map
+    y-samples crossed with the two neighbour columns of each in-map
+    x-sample (the plain version's float32 sample coordinates): a product
+    of a row set and a column set, which skips the pixels between samples
+    more than a pixel apart (a large box on a fine level); the union over
+    an image's boxes is one matrix product of those sets."""
     import torch
-    b = boxes.shape[0]
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    b, n = boxes.shape[:2]
     c = feats[0].shape[-1]
+    dev = boxes.device
+    lvl = RA.fpn_map_rois_to_levels(boxes) if levels is None else levels
+    lvl = lvl.long().clamp(0, len(feats) - 1)
+    stride = torch.tensor(list(strides), dtype=torch.float32, device=dev)
+    fb = boxes / stride[lvl][..., None]
+    ys = RA._sample_grid(fb[..., 1], fb[..., 3], 2 * pool)
+    xs = RA._sample_grid(fb[..., 0], fb[..., 2], 2 * pool)
+
+    def taps(s, extent, sel):
+        """[B, N, extent] float: 1 where a selected box reads that row
+        (column)."""
+        inside = (s >= 0) & (s <= extent - 1) & sel[..., None]
+        lo = torch.floor(s).long().clamp(0, extent - 1)
+        hi = (lo + 1).clamp(max=extent - 1)
+        m = torch.zeros(b, n, extent + 1, device=dev)
+        for idx in (lo, hi):
+            m.scatter_(-1, torch.where(inside, idx, extent), 1.0)
+        return m[..., :extent]
+
     touched = 0
-    for li, bi, r0, r1, c0, c1 in roi_windows(feats, boxes, valid, strides,
-                                              pool):
-        f = feats[li]
+    for li, f in enumerate(feats):
         h, w = f.shape[1:3]
-        diff = torch.zeros(b, h + 1, w + 1, dtype=torch.int32,
-                           device=boxes.device)
-        one = torch.ones_like(r0, dtype=torch.int32)
-        for rr, cc, sign in ((r0, c0, 1), (r0, c1 + 1, -1), (r1 + 1, c0, -1),
-                             (r1 + 1, c1 + 1, 1)):
-            diff.index_put_((bi, rr, cc), sign * one, accumulate=True)
-        cover = diff.cumsum(1).cumsum(2)[:, :h, :w] > 0
+        sel = valid & (lvl == li)
+        cover = torch.einsum("bny,bnx->byx", taps(ys, h, sel),
+                             taps(xs, w, sel)) > 0
         touched += int(cover.sum().item()) * c * (elem_bytes
                                                   or f.element_size())
     return touched
 
 
-def roi_bound_ms(feats, boxes, valid, strides, pool):
+def roi_bound_ms(feats, boxes, valid, strides, pool, levels=None):
     """The least time of one ROIAlign launch on the card: the bytes it must
-    move over the memory rate (its float32 output, the boxes and validity,
-    and the feature pixels its valid boxes' bilinear samples touch, counted
-    once per image and level: roi_touched_bytes). Its few operations per
-    byte leave it bound by bytes."""
+    move over the memory rate (its float32 output, the boxes, validity and
+    explicit levels, and the feature pixels its valid boxes' bilinear samples touch
+    on their levels, counted once per image and level:
+    roi_touched_bytes). Its few operations per byte leave it bound by
+    bytes."""
     b, n = boxes.shape[:2]
     c = feats[0].shape[-1]
-    touched = roi_touched_bytes(feats, boxes, valid, strides, pool)
+    touched = roi_touched_bytes(feats, boxes, valid, strides, pool,
+                                levels=levels)
     out_bytes = b * n * pool * pool * c * 4
-    return 1e3 * (touched + out_bytes + b * n * 17) / PEAK_BYTES
+    per_roi = 17 if levels is None else 21    # box, valid flag, level
+    return 1e3 * (touched + out_bytes + b * n * per_roi) / PEAK_BYTES
 
 
 def roi_bwd_bound_ms(feats, boxes, strides, pool):
@@ -517,22 +638,23 @@ def forward_kernel_inputs(model, x, out):
 
 
 def check_roi_launch(phase, label, feats, strides, boxes, valid, pool,
-                     timed):
-    """One ROIAlign launch redone on its own inputs through the kernel and
-    the plain version; the bound scales with the plain result's largest
-    magnitude. With ``timed``: median CUDA-event times of the wrapper's
-    call and of the plain version, the kernel's own device time
-    (torch.profiler), and the launch's bound. Returns a dict."""
+                     timed, levels=None):
+    """One ROIAlign launch redone on its own inputs (its explicit
+    ``levels``, if it had them) through the kernel and the plain version;
+    the bound scales with the plain result's largest magnitude. With
+    ``timed``: median CUDA-event times of the wrapper's call and of the
+    plain version, the kernel's own device time (torch.profiler), and the
+    launch's bound. Returns a dict."""
     import torch
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
 
     def kernel():
         return RA.multilevel_roi_align_cuda(feats, boxes, strides, pool,
-                                            valid=valid)
+                                            valid=valid, levels=levels)
 
     def plain():
         return RA.multilevel_roi_align(feats, boxes, strides, pool,
-                                       valid=valid)
+                                       valid=valid, levels=levels)
     got = kernel()
     ref = plain()
     err = (got - ref).abs().max().item()
@@ -550,7 +672,7 @@ def check_roi_launch(phase, label, feats, strides, boxes, valid, pool,
         entry["bound_ms"] = roi_bound_ms(
             feats, boxes, torch.ones(boxes.shape[:2], dtype=torch.bool,
                                      device=boxes.device)
-            if valid is None else valid, strides, pool)
+            if valid is None else valid, strides, pool, levels)
         entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
         msg = (f"; kernel {entry['ms']:.4f} ms, plain "
                f"{entry['plain_ms']:.4f} ms (median of 15, CUDA events),"
@@ -596,10 +718,11 @@ def main_path_kernel_check(model, x, out, phase, timed=False):
     return res
 
 
-def build_model(cfg, tree, device):
+def build_model(cfg, tree, device, model_name=None):
     from object_detection_tracking_tpu_torch.models import get_model
     from object_detection_tracking_tpu_torch.params import params_from_jax
-    return params_from_jax(tree, get_model(cfg)).to(device).eval()
+    return params_from_jax(tree, get_model(cfg, model_name)).to(
+        device).eval()
 
 
 def phase_main_path(tmp):
@@ -1147,6 +1270,239 @@ def phase_actev(tmp):
     return model, unfused, x, res
 
 
+def calibrate_bn(model, x):
+    """Random EfficientNet and BiFPN weights with the init's identity BN
+    statistics shrink the activations ~100x at every depthwise conv, and
+    every score then sits at the class prior: set each BN site's
+    statistics, in order, to those of its input on the batch ``x`` (one
+    mean and variance per site, over all channels), as trained statistics
+    would keep the features at unit scale. Widths and shapes unchanged."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops.norm import frozen_bn
+
+    def calibrating(bn, t):
+        tf = t.float()
+        bn.mean.fill_(tf.mean().item())
+        bn.variance.fill_(tf.var(unbiased=False).item())
+        return frozen_bn(bn, t)
+    with torch.no_grad():
+        model.heads(model.features(x, bn=calibrating), bn=calibrating)
+
+
+def effdet_setup(tmp, device, name, h, w):
+    """The CLI's EfficientDet arguments (--is_efficientdet
+    --use_partial_classes, top-k 5000), its configuration, and random
+    weights from seed 0 whose BN statistics are calibrated on a synthetic
+    batch of h x w frames (calibrate_bn, in float32); as phase 4 does for
+    ResNet, each MBConv's project BN gamma is scaled by 0.2. Writes under
+    ``tmp``."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    from object_detection_tracking_tpu_torch.params import (init_params,
+                                                            params_to_jax)
+    args = cli.get_args([
+        "--video_dir", tmp, "--video_lst_file", os.path.join(tmp, "none"),
+        "--is_efficientdet", "--efficientdet_modelname", name,
+        "--use_partial_classes", "--frame_gap", str(FRAME_GAP),
+        "--im_batch_size", str(BATCH), "--get_tracking", "--tracking_dir",
+        os.path.join(tmp, "effdet_tracks"), "--min_confidence", "0.0",
+        "--pixel_format", "bgr", "--prefetch", "3"])
+    cfg = cli.build_config(args, device)
+    got = (cfg.efficientdet_name, cfg.compute_dtype, cfg.roi_align_impl,
+           cfg.efficientdet_max_detection_topk, cfg.num_class,
+           len(cfg.partial_classes))
+    if got != (name, "bfloat16", "pallas", 5000, 81, 5):
+        raise AssertionError(f"not the CLI's EfficientDet default: {got}")
+    tree = init_params(cfg, seed=0, model_name="efficientdet")
+    for gname, group in tree["backbone"].items():
+        if gname.startswith("group"):
+            for blk in group.values():
+                blk["project"]["bn"]["gamma"] *= 0.2
+    cal = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                      tree, device, "efficientdet")
+    video = SyntheticVideo(BATCH, seed=3, h=h, w=w)
+    calibrate_bn(cal, torch.from_numpy(
+        np.stack([video.read()[1] for _ in range(BATCH)])).to(device))
+    tree = params_to_jax(cal)
+    del cal
+    torch.cuda.empty_cache()
+    return args, cfg, tree
+
+
+def effdet_launch_inputs(model, x):
+    """The inputs of the B1 launch of one EfficientDet forward on ``x``,
+    recomputed: (P3..P7 as NHWC, final boxes, their source levels)."""
+    import torch
+    h, w = x.shape[1:3]
+    with torch.inference_mode():
+        feats = model.features(x)
+        cls_flat, box_flat = model.flat_heads(*model.heads(feats))
+        fb, _, _, _, flv = model.postprocess(cls_flat, box_flat, (h, w))
+        return ([f.permute(0, 2, 3, 1).contiguous() for f in feats], fb,
+                flv)
+
+
+def phase_effdet(tmp):
+    """The CLI's EfficientDet default (d0, partial COCO) through
+    process_video, its checks, then one d6 forward (phase 10 of the module
+    note). Returns a summary dict."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.runtime import DetectionRunner
+
+    device = torch.device("cuda")
+    args, cfg, tree = effdet_setup(tmp, device, "efficientdet-d0", EFFDET_H,
+                                   EFFDET_W)
+    model = build_model(cfg, tree, device, "efficientdet")
+    n_params = sum(p.numel() for p in model.parameters())
+    log("effdet", f"EfficientDet-d0 partial-COCO ({model.backbone_name}, "
+        f"BiFPN {model.fpn_filters} x{model.fpn_repeats} {model.fusion}, "
+        f"heads x{model.head_repeats}), {n_params} params, bf16, "
+        f"{EFFDET_W}x{EFFDET_H} frames into {model.image_size}x"
+        f"{model.image_size}, BN calibrated on a synthetic batch")
+    warm = torch.zeros(BATCH, EFFDET_H, EFFDET_W, 3, dtype=torch.uint8,
+                       device=device)
+    model(warm)
+    torch.cuda.synchronize()
+    del warm
+
+    n_labels = len(cfg.partial_classes) + 1
+    runner = CheckedRunner(DetectionRunner(model), cfg.result_per_im,
+                           n_labels, feat_dim=model.fpn_filters)
+    n_frames = FRAME_GAP * BATCH * N_BATCHES
+    torch.cuda.reset_peak_memory_stats()
+    RA.multilevel_roi_align_cuda.launches = 0
+    t0 = time.perf_counter()
+    frames = cli.process_video(args, cfg, runner, "effdet.mp4",
+                               cfg.classid2name,
+                               dict(cli.coco_obj_to_actev_obj),
+                               vcap=SyntheticVideo(n_frames, h=EFFDET_H,
+                                                   w=EFFDET_W))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    roi_n = RA.multilevel_roi_align_cuda.launches
+    if frames != n_frames // FRAME_GAP or runner.batches != N_BATCHES:
+        raise AssertionError(f"{frames} frames in {runner.batches} batches")
+    if roi_n != runner.batches:
+        raise AssertionError(f"roi_align launched {roi_n} times for "
+                             f"{runner.batches} batches, want 1 per batch")
+    rows = {}
+    for obj in ("Person", "Vehicle"):
+        path = os.path.join(tmp, "effdet_tracks", "effdet", obj,
+                            "effdet.txt")
+        with open(path) as f:
+            lines = [ln for ln in f if ln.strip()]
+        rows[obj] = (len(lines), len({ln.split(",")[1] for ln in lines}))
+    names = {i: n for n, i in cfg.classname2id.items()}
+    by_name = {names.get(k, k): v for k, v in sorted(runner.by_label.items())}
+    if runner.dets == 0 or sum(r for r, _ in rows.values()) == 0:
+        raise AssertionError(f"no detections or no tracks: {runner.dets} "
+                             f"detections {by_name}, track rows {rows}")
+    res = {"frames": frames, "batches": runner.batches, "wall_s": wall,
+           "fps": frames / wall, "ms_per_batch": 1e3 * wall / runner.batches,
+           "roi_launches": roi_n, "detections": runner.dets,
+           "dets_per_frame": runner.dets / frames, "track_rows": rows,
+           "runner_ms": 1e3 * runner.runner_s / runner.batches,
+           "caller_ms": 1e3 * runner.consumer_s / runner.batches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("effdet", f"{frames} frames (1/{FRAME_GAP} of {n_frames}) in "
+        f"{runner.batches} batches of {BATCH}: {wall:.3f} s wall, "
+        f"{res['fps']:.2f} processed fps, {res['ms_per_batch']:.1f} ms per "
+        f"batch ({res['runner_ms']:.1f} in DetectionRunner.run, "
+        f"{res['caller_ms']:.1f} in the caller), {runner.dets} detections "
+        f"({res['dets_per_frame']:.1f}/frame) by class {by_name}, roi_align "
+        f"launches {roi_n} (1 per batch), MOT rows/ids {rows}, peak "
+        f"{res['peak_gib']:.2f} GiB")
+
+    # f32 check: one batch with the kernel and with the plain ROIAlign, TF32
+    # off. B1 is the forward's last op: the detections must be the same,
+    # and the embeddings within KERNEL_ATOL of their largest magnitude
+    video = SyntheticVideo(BATCH, seed=1, h=EFFDET_H, w=EFFDET_W)
+    x = torch.from_numpy(np.stack([video.read()[1] for _ in range(BATCH)])
+                         ).to(device)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = build_model(cfg32, tree, device, "efficientdet")
+    out_k = model32(x)
+    model32.config = dataclasses.replace(cfg32, roi_align_impl="xla")
+    out_p = model32(x)
+    for k in ("final_boxes", "final_labels", "final_probs", "final_valid"):
+        if not torch.equal(out_k[k], out_p[k]):
+            raise AssertionError(f"f32 forward, ROIAlign kernel vs plain: "
+                                 f"{k} differ")
+    scale = out_p["pooled_box_feat"].abs().max().item()
+    emb_err = (out_k["pooled_box_feat"] - out_p["pooled_box_feat"]).abs() \
+        .max().item()
+    if not emb_err <= KERNEL_ATOL * max(1.0, scale):
+        raise AssertionError(f"f32 forward: embeddings differ by {emb_err}")
+    n_valid = int(out_p["final_valid"].sum())
+    log("effdet", f"f32 batch, ROIAlign kernel vs plain: detections equal "
+        f"({n_valid} valid), pooled_box_feat max |d| {emb_err:.3g} (bound "
+        f"{KERNEL_ATOL} x max(1, {scale:.3g}))")
+    del model32, out_k, out_p
+    torch.cuda.empty_cache()
+
+    feats, boxes, levels = effdet_launch_inputs(model, x)
+    res["roi"] = check_roi_launch("effdet", "d0 P3..P7 C=64 N=100 P=7",
+                                  feats, EFFDET_STRIDES, boxes, None, 7,
+                                  timed=True, levels=levels)
+    res["roi"]["level_counts"] = torch.bincount(
+        levels.flatten().long(), minlength=5).tolist()
+    res["profile"] = phase_profile(model, x, "effdet-profile")
+    del model, x, feats, boxes, levels
+    torch.cuda.empty_cache()
+
+    # one bf16 forward of d6 (B=8, 1280x720 frames into 1280x1280, 8 BiFPN
+    # repeats with sum fusion, C=384) and its B1 launch
+    _, cfg6, tree6 = effdet_setup(tmp, device, "efficientdet-d6", FRAME_H,
+                                  FRAME_W)
+    model6 = build_model(cfg6, tree6, device, "efficientdet")
+    if (model6.fusion, model6.fpn_repeats, model6.fpn_filters) != \
+            ("sum", 8, 384):
+        raise AssertionError("not d6")
+    x6 = torch.from_numpy(np.stack([SyntheticVideo(BATCH, seed=2).read()[1]
+                                    for _ in range(BATCH)])).to(device)
+    model6(x6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    RA.multilevel_roi_align_cuda.launches = 0
+    out6 = model6(x6)
+    torch.cuda.synchronize()
+    if RA.multilevel_roi_align_cuda.launches != 1:
+        raise AssertionError("d6 forward: roi_align not launched once")
+    r = cfg6.result_per_im
+    for k, shape in (("final_boxes", (BATCH, r, 4)), ("final_probs",
+                                                      (BATCH, r)),
+                     ("pooled_box_feat", (BATCH, r, 384))):
+        if tuple(out6[k].shape) != shape or not torch.isfinite(
+                out6[k]).all():
+            raise AssertionError(f"d6 {k}: {tuple(out6[k].shape)}, want "
+                                 f"{shape}, finite")
+    d6 = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "detections": int(out6["final_valid"].sum()), "launches": 1}
+    feats6, boxes6, levels6 = effdet_launch_inputs(model6, x6)
+    d6["roi"] = check_roi_launch("effdet", "d6 P3..P7 C=384 N=100 P=7",
+                                 feats6, EFFDET_STRIDES, boxes6, None, 7,
+                                 timed=True, levels=levels6)
+    d6["roi"]["level_counts"] = torch.bincount(
+        levels6.flatten().long(), minlength=5).tolist()
+    del feats6, boxes6, levels6
+    d6["profile"] = phase_profile(model6, x6, "effdet-d6-profile")
+    log("effdet", f"d6 forward, {sum(p.numel() for p in model6.parameters())}"
+        f" params, B={BATCH} {FRAME_W}x{FRAME_H} into 1280x1280: "
+        f"{d6['detections']} valid detections, roi_align launched once, "
+        f"peak {d6['peak_gib']:.2f} GiB, source levels "
+        f"{d6['roi']['level_counts']}")
+    res["d6"] = d6
+    del model6, x6, out6
+    torch.cuda.empty_cache()
+    return res
+
+
 class MemoryBatches:
     """One training batch in memory, yielded ``steps`` times per epoch:
     DetectionTrainDataset's ``batches`` interface, for a machine with no
@@ -1529,6 +1885,42 @@ def build_kernels(native):
     return {"hgmma": n_hgmma, "hmma": n_hmma}
 
 
+def effdet_kernel_row(name, effdet, kres):
+    """The kernels line's row of B1 in EfficientDet's mode (five levels,
+    explicit levels) for d0 (the effdet path's launches) or d6 (its one
+    forward): the path launch redone on its own inputs, and phase 3's
+    synthetic case at the same shapes in f32 and bf16."""
+    import torch
+    launch = effdet["roi"] if name == "d0" else effdet["d6"]["roi"]
+    synth = {str(dt)[6:]: dict(zip(("err", "ms", "plain_ms", "bound_ms",
+                                    "device_ms"), kres[(name, dt)]))
+             for dt in (torch.float32, torch.bfloat16)}
+    return {
+        "name": f"roi_align_5level_{name}", "route": "cuda",
+        "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
+        "replaces": "object_detection_tracking_tpu/ops/pallas/"
+                    "roi_align_pallas.py:138",
+        "launches": (effdet["roi_launches"] if name == "d0"
+                     else effdet["d6"]["launches"]),
+        "max_abs_err": max([launch["err"]]
+                           + [v["err"] for v in synth.values()]),
+        "ms": launch["ms"], "device_ms": launch["device_ms"],
+        "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
+        "bound_share": launch["bound_share"], "bound_by": "bytes",
+        "library_ms": None, "level_counts": launch["level_counts"],
+        "synthetic": synth,
+        "shapes": ("EfficientDet-d0 path (B=8, P3..P7 of 512x512, C=64, "
+                   "N=100, P=7, bf16), its launches counted over "
+                   f"{N_BATCHES} batches" if name == "d0" else
+                   "EfficientDet-d6 forward (B=8, P3..P7 of 1280x1280, "
+                   "C=384, N=100, P=7, bf16), one launch") +
+                  "; ms, device_ms, plain_ms, bound_ms: the launch redone "
+                  "on its own inputs (explicit source levels, invalid "
+                  "slots zero boxes on level 0); synthetic: phase 3's "
+                  "case at the same shapes (random explicit levels, "
+                  "P7-edge and zero boxes), f32 and bf16"}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1559,9 +1951,13 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        effdet = phase_effdet(tmp)
 
     roi = actev["check"]["roi"]
-    err = max([r[0] for r in kres.values()] + [main_res["roi_err"]]
+    four = {k: v for k, v in kres.items() if k[0] in (1000, 100)}
+    err = max([r[0] for r in four.values()] + [main_res["roi_err"]]
               + [r["err"] for r in roi.values()]
               + [r["err"] for r in train["roi"].values()])
     bwd = train["bwd"]
@@ -1652,7 +2048,11 @@ def main():
                    "[8,272,480,64] x3, c3 [8,136,240,512] x3, c4 "
                    "[8,68,120,1024] x22; ms, plain_ms, bound_ms, "
                    "per_conv_floor_ms, cudnn_stack_ms and by_kind summed "
-                   "over the three"}],
+                   "over the three"}
+        ] + [effdet_kernel_row(name, effdet, kres) for name in ("d0", "d6")],
+        "effdet_path": {k: v for k, v in effdet.items()
+                        if k not in ("roi", "d6")},
+        "effdet_d6": {k: v for k, v in effdet["d6"].items() if k != "roi"},
         "actev_path": {k: v for k, v in actev.items() if k != "check"},
         "actev_profile": prof,
         "train": {k: v for k, v in train.items() if k not in ("roi", "bwd")},

@@ -15,6 +15,11 @@ Example:
     --model_path model.npz --use_partial_classes --resnet50 \
     --short_edge_size 720 --max_size 1280 --frame_gap 8 --im_batch_size 8 \
     --get_tracking --tracking_dir tracks_out --device cuda
+
+``--is_efficientdet`` runs EfficientDet (``--efficientdet_modelname``,
+d0 by default) on frames fitted into its square input; ``--model_path``
+then takes the JAX package's native npz or an npz of the automl
+checkpoint names (utils/effdet_weights.py).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from ..utils.masks import fill_full_mask, rle_encode
 
 # flags of parts not ported yet -> ROADMAP item that ports them
 _NOT_PORTED = {
-    "is_efficientdet": "A10", "use_deformable": "A8",
+    "use_deformable": "A8",
     "use_gn": "A8", "add_relation_nn": "A8", "use_att_frcnn_head": "A8",
     "use_conv_frcnn_head": "A8", "use_lijun_video_loader": "A12",
     "log_time_and_gpu": "A12",
@@ -57,7 +62,8 @@ def get_args(argv=None):
     parser.add_argument("--out_dir", default=None,
                         help="per-frame detection json output dir")
     parser.add_argument("--model_path", default=None,
-                        help=".npz of the JAX package's native flat layout")
+                        help=".npz of the JAX package's native flat layout "
+                        "(EfficientDet: also automl checkpoint names)")
     parser.add_argument("--version", type=int, default=4)
     parser.add_argument("--num_class", type=int, default=16)
     parser.add_argument("--is_coco_model", action="store_true")
@@ -196,6 +202,20 @@ def build_config(args, device: torch.device) -> DetectorConfig:
         v = getattr(args, f, None)
         if v is not None:
             overrides[f] = v
+    if args.is_efficientdet:
+        from ..models.efficientdet import EFFICIENTDET_CONFIGS
+        size = EFFICIENTDET_CONFIGS[args.efficientdet_modelname][1]
+        # fit into the square input: short edge = max size = image size
+        # makes get_new_hw scale by image_size / max(h, w)
+        overrides.update(
+            short_edge_size=size, max_size=size,
+            efficientdet_name=args.efficientdet_modelname,
+            efficientdet_max_detection_topk=(
+                args.efficientdet_max_detection_topk))
+        overrides.pop("num_class", None)   # COCO models: 81 classes
+        if args.use_partial_classes:
+            return DetectorConfig.coco_partial(**overrides)
+        return DetectorConfig.coco(**overrides)
     if args.use_partial_classes:
         overrides.pop("num_class", None)
         return DetectorConfig.coco_partial(**overrides)
@@ -382,16 +402,34 @@ def _write_frame_json(args, video_out_path, videoname, cur_frame, boxes,
         json.dump(pred, f)
 
 
+def load_tree(path: str, model, model_name: str):
+    """--model_path as a JAX-layout param tree: the native flat npz, or for
+    EfficientDet an npz of automl checkpoint names (JAX
+    utils/weights.py:191-204). TF checkpoints are not ported (A12)."""
+    if not path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{path}: only .npz weights are read; TF checkpoints "
+            "(utils/tf_ckpt.py) are not ported yet (ROADMAP A12)")
+    if model_name == "efficientdet":
+        from ..utils.effdet_weights import has_automl_names, \
+            load_effdet_reference
+        with np.load(path) as data:
+            if has_automl_names(data.files):
+                return load_effdet_reference(dict(data), model, source=path)
+    return load_npz_tree(path, model_name)
+
+
 def build_runner(args, cfg, device: torch.device) -> DetectionRunner:
     """The detector on ``device`` with --model_path weights (or seeded
     random ones), wrapped in the pipelined runner."""
-    model = get_model(cfg)
+    model_name = "efficientdet" if args.is_efficientdet else "faster_rcnn"
+    model = get_model(cfg, model_name)
     if args.model_path:
-        tree = load_npz_tree(args.model_path)
+        tree = load_tree(args.model_path, model, model_name)
     else:
         print("warning: no --model_path, using random weights",
               file=sys.stderr)
-        tree = init_params(cfg, seed=0)
+        tree = init_params(cfg, seed=0, model_name=model_name)
     params_from_jax(tree, model)
     model.to(device).eval()
     return DetectionRunner(model, emb_agg=args.emb_agg_method,

@@ -4,13 +4,17 @@
 // Replaces the Pallas TPU kernel object_detection_tracking_tpu/ops/pallas/
 // roi_align_pallas.py (`_kernel` :138, launched by `_roi_align_levels`
 // behind `multilevel_roi_align_pallas`). It computes exactly what the plain
-// PyTorch `multilevel_roi_align` in ops/roi_align.py computes: per ROI, the
-// canonical FPN level (passed in as int32, computed by the wrapper with the
-// shared `fpn_map_rois_to_levels`, so the two versions cannot disagree at a
-// floor(log2) boundary); a 2P x 2P grid of tf.crop_and_resize fpcoor
+// PyTorch `multilevel_roi_align` in ops/roi_align.py computes: per ROI, its
+// level (int32 from the caller: the canonical FPN level, computed by the
+// wrapper with the shared `fpn_map_rois_to_levels` so the two versions
+// cannot disagree at a floor(log2) boundary, or the caller's own, as
+// EfficientDet pools each detection from the level of its anchor; clamped
+// here into the levels given); a 2P x 2P grid of tf.crop_and_resize fpcoor
 // samples (y(i) = y0 + sh * (i + 0.5) - 0.5, zero outside [0, H-1]); each
 // sample bilinear over its 4 neighbours; the 2x2 mean; float32 out.
-// Invalid (NMS-suppressed) slots write exact zeros.
+// Invalid (NMS-suppressed) slots write exact zeros. Like the Pallas kernel
+// it takes any number of levels up to kMaxLevels: four (Faster R-CNN's
+// p2..p5) or five (EfficientDet's P3..P7, down to 4 x 4 pixels).
 //
 // No level demotion: the Pallas kernel moves elongated boxes to a coarser
 // level only because its fixed 40x48 VMEM window cannot hold them
@@ -44,7 +48,8 @@
 //     by __shfl_sync: no shared table, no barrier;
 //   * 16-byte gathers: a lane owns 8 consecutive bf16 channels (4 float32),
 //     so at C = 256 bf16 one warp instruction reads a whole 512-byte pixel
-//     row; all 16 neighbour loads of a bin are issued read-only
+//     row, and a wider row (EfficientDet d6/d7: C = 384, 48 chunks) takes
+//     a second pass of the warp's first lanes; all 16 neighbour loads of a bin are issued read-only
 //     (ld.global.nc) before its arithmetic, which runs in float32
 //     registers. Where C is not a multiple of the vector width, or a level
 //     does not start on 16 bytes, the same kernel runs its scalar path, one
@@ -69,11 +74,14 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+constexpr int kMaxLevels = 5;
+
 struct Levels {
-  const void* ptr[4];
-  int h[4];
-  int w[4];
-  int stride[4];
+  const void* ptr[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int stride[kMaxLevels];
+  int count;   // levels in use, 1..kMaxLevels
 };
 
 // One sample coordinate `a` on an axis of `extent` pixels: its lower
@@ -248,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 2) roi_align_fwd_kernel(
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int l = levels[roi];
+  const int l = min(max(levels[roi], 0), lv.count - 1);
   const int h = lv.h[l];
   const int w = lv.w[l];
   const LaneSamples ls = lane_samples(boxes + (size_t)roi * 4,
@@ -313,34 +321,47 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// features f0..f3: NHWC [num_images, h_l, w_l, channels], float32 or bf16.
-// boxes [num_images * rois_per_image, 4] float32 image coords; levels int32
-// 0..3; valid bool or NULL (all valid); out [rois, pool, pool, channels]
-// float32. One block per ROI. The vector path needs channels a multiple of
-// 8 (bf16) or 4 (float32) and every level and `out` on 16 bytes; anything
-// else runs the scalar path. Launches on `stream`, returns the launch's
-// cudaError_t.
+// features f0..f{num_levels-1}: NHWC [num_images, h_l, w_l, channels],
+// float32 or bf16, num_levels 1..5 (the slots past it are ignored). boxes
+// [num_images * rois_per_image, 4] float32 image coords; levels int32 (any
+// value: clamped into 0..num_levels-1); valid bool or NULL (all valid); out
+// [rois, pool, pool, channels] float32. One block per ROI. The vector path
+// needs channels a multiple of 8 (bf16) or 4 (float32) and every level in
+// use and `out` on 16 bytes; anything else runs the scalar path. Launches
+// on `stream`, returns the launch's cudaError_t (cudaErrorInvalidValue
+// for a level count outside 1..5).
 extern "C" int roi_align_forward(
     const void* f0, const void* f1, const void* f2, const void* f3,
-    int h0, int w0, int h1, int w1, int h2, int w2, int h3, int w3,
-    int s0, int s1, int s2, int s3,
-    const void* boxes, const void* levels, const void* valid, void* out,
-    int num_images, int rois_per_image, int channels, int pool, int is_bf16,
-    void* stream) {
+    const void* f4, int h0, int w0, int h1, int w1, int h2, int w2, int h3,
+    int w3, int h4, int w4, int s0, int s1, int s2, int s3, int s4,
+    int num_levels, const void* boxes, const void* levels, const void* valid,
+    void* out, int num_images, int rois_per_image, int channels, int pool,
+    int is_bf16, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* const fl[kMaxLevels] = {f0, f1, f2, f3, f4};
+  const int hl[kMaxLevels] = {h0, h1, h2, h3, h4};
+  const int wl[kMaxLevels] = {w0, w1, w2, w3, w4};
+  const int sl[kMaxLevels] = {s0, s1, s2, s3, s4};
   Levels lv;
-  lv.ptr[0] = f0; lv.ptr[1] = f1; lv.ptr[2] = f2; lv.ptr[3] = f3;
-  lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
-  lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
-  lv.stride[0] = s0; lv.stride[1] = s1; lv.stride[2] = s2; lv.stride[3] = s3;
+  lv.count = num_levels;
+  bool aligned = aligned16(out);
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const bool used = l < num_levels;
+    lv.ptr[l] = used ? fl[l] : nullptr;
+    lv.h[l] = used ? hl[l] : 0;
+    lv.w[l] = used ? wl[l] : 0;
+    lv.stride[l] = used ? sl[l] : 1;
+    aligned &= !used || aligned16(fl[l]);
+  }
   const dim3 grid(num_images * rois_per_image);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(boxes);
   const int* lvl = static_cast<const int*>(levels);
   const bool* v = static_cast<const bool*>(valid);
   float* o = static_cast<float*>(out);
-  const bool vec = aligned16(f0) && aligned16(f1) && aligned16(f2) &&
-                   aligned16(f3) && aligned16(out) &&
-                   channels % (is_bf16 ? 8 : 4) == 0;
+  const bool vec = aligned && channels % (is_bf16 ? 8 : 4) == 0;
   cudaError_t err;
   if (is_bf16) {
     err = vec ? launch<__nv_bfloat16, 8>(grid, st, lv, b, lvl, v, o,

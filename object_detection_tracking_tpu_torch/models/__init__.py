@@ -12,8 +12,10 @@ def get_model(config, model_name: str = None):
         model_name = getattr(config, "model", "faster_rcnn")
     if model_name == "faster_rcnn":
         return FasterRCNNFPN(config)
-    if model_name in ("mask_rcnn", "efficientdet"):
+    if model_name == "efficientdet":
+        from .efficientdet import EfficientDet
+        return EfficientDet(config)
+    if model_name == "mask_rcnn":
         raise NotImplementedError(
-            f"{model_name} is not ported yet (ROADMAP "
-            f"{'A8' if model_name == 'mask_rcnn' else 'A10'})")
+            "mask_rcnn is not ported yet (ROADMAP A8)")
     raise ValueError(f"unknown model {model_name!r}")

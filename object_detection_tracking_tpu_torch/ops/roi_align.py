@@ -12,14 +12,17 @@ box [y0, y1] on the ROI's FPN level,
 
 bilinear-interpolated, with samples outside [0, H-1] x [0, W-1] giving 0;
 ROIAlign samples at S = 2P and takes the 2x2 mean. The level is the
-canonical FPN level of the box (``fpn_map_rois_to_levels``). The Pallas
+canonical FPN level of the box (``fpn_map_rois_to_levels``), or the
+caller's own per ROI (``levels``, clamped into the levels given, as the
+JAX op does): EfficientDet pools each detection from the level of the
+anchor that produced it, over five levels P3..P7. The Pallas
 kernel demotes elongated boxes to a coarser level only because its fixed
 40x48 VMEM window cannot hold them; the CUDA kernel reads device memory
 directly, so both versions here keep the canonical level — the semantics
 that ``config.roi_align_impl="xla"`` names the exact reference.
 
 Layouts follow the JAX package: features NHWC [B, H_l, W_l, C] per level
-(p2..p5), boxes [B, N, 4] x1y1x2y2 in image coords, valid [B, N] bool,
+(p2..p5, or P3..P7), boxes [B, N, 4] x1y1x2y2 in image coords, valid [B, N] bool,
 output [B, N, P, P, C] float32, with invalid slots exactly 0.
 
 Divisions by constants go through a 0-dim tensor on the operands' device:
@@ -200,7 +203,8 @@ def roi_tap_footprint(features: Sequence[torch.Tensor], boxes: torch.Tensor,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 12 + [_P] * 4 + [_I] * 5 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 16 + [_P] * 4 + [_I] * 5 + [_P]
+_MAX_LEVELS = 5  # kMaxLevels in csrc
 _BWD_ARGTYPES = [_P] * 2 + [_I] * 13 + [_P] * 3 + [_I] * 5 + [_P]
 _MAX_POOL = 32   # 2P <= 64 samples per axis: two per lane of a warp
 BWD_TILE = (4, 16)   # B1b's output tile, pixels (kTileH, kTileW in csrc)
@@ -220,12 +224,14 @@ def _cuda_lib():
     return _cuda_fn("roi_align_forward", _ARGTYPES)
 
 
-def _check_cuda_args(features, boxes, strides, output_size):
+def _check_cuda_args(features, boxes, strides, output_size, max_levels):
     """The kernels' shared argument checks; returns (b, n, c, dtype)."""
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
-    if len(features) != 4 or len(strides) != 4:
-        raise ValueError("the kernel takes exactly 4 FPN levels (p2..p5)")
+    if not 1 <= len(features) <= max_levels or len(strides) != len(features):
+        raise ValueError(f"the kernel takes 1 to {max_levels} levels and one "
+                         f"stride per level, got {len(features)} levels and "
+                         f"{len(strides)} strides")
     if not 1 <= output_size <= _MAX_POOL:
         raise ValueError(f"output_size {output_size} outside 1..{_MAX_POOL}")
     b, n = boxes.shape[:2]
@@ -253,9 +259,10 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
                               levels: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """FPN ROIAlign through the hand-written CUDA kernel; same arguments and
-    result as ``multilevel_roi_align``. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel on the current stream (no sync) or
-    raises. Any C is taken: the kernel reads 16 bytes per lane where C is a
+    result as ``multilevel_roi_align``: up to five levels, canonical levels
+    or the caller's (``levels`` [B, N], clamped into the levels given by the
+    kernel). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel on the current stream (no sync) or raises. Any C is taken: the kernel reads 16 bytes per lane where C is a
     multiple of 8 (bf16) or 4 (float32) and every level starts on 16 bytes,
     and runs its scalar path otherwise (for example a feature view whose
     storage offset leaves it off 16 bytes).
@@ -263,23 +270,29 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
     if boxes.device.type == "cpu":
         return multilevel_roi_align(features, boxes, strides, output_size,
                                     valid=valid, levels=levels)
-    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size)
+    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size,
+                                      _MAX_LEVELS)
     if valid is not None and (valid.shape != (b, n)
                               or valid.dtype != torch.bool
                               or valid.device != boxes.device
                               or not valid.is_contiguous()):
         raise ValueError("valid must be a contiguous bool [B, N] tensor")
     lvl = fpn_map_rois_to_levels(boxes) if levels is None else levels
-    lvl = lvl.to(torch.int32).clamp(0, 3).contiguous()
+    if lvl.shape != (b, n) or lvl.device != boxes.device:
+        raise ValueError(f"levels must be [B, N] = {(b, n)} on the boxes' "
+                         f"device")
+    lvl = lvl.to(torch.int32).contiguous()   # the kernel clamps
     out = torch.empty((b, n, output_size, output_size, c),
                       dtype=torch.float32, device=boxes.device)
     if b * n == 0:
         return out
+    pad = _MAX_LEVELS - len(features)
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
     err = _cuda_lib()(
-        *[f.data_ptr() for f in features], *dims, *[int(s) for s in strides],
+        *[f.data_ptr() for f in features], *[None] * pad, *dims,
+        *[0, 0] * pad, *[int(s) for s in strides], *[1] * pad, len(features),
         boxes.data_ptr(), lvl.data_ptr(),
         valid.data_ptr() if valid is not None else None, out.data_ptr(),
         b, n, c, output_size, int(dtype == torch.bfloat16),
@@ -311,7 +324,11 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
     if boxes.device.type == "cpu":
         return multilevel_roi_align_vjp(features, boxes, strides, output_size,
                                         grad_out, levels=levels)
-    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size)
+    if len(features) != 4:
+        raise ValueError(f"the backward kernel (B1b) takes exactly 4 levels "
+                         f"(p2..p5), got {len(features)}")
+    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size,
+                                      4)
     p = output_size
     if grad_out.shape != (b, n, p, p, c) or grad_out.dtype != torch.float32 \
             or grad_out.device != boxes.device:

@@ -10,10 +10,17 @@ a module attribute one to one:
   * ``nn.Linear.weight`` [out, in]  <->  dense ``W`` [in, out]
   * ``bias``                        <->  ``b``
   * FrozenBN parameters             <->  ``bn/{gamma,beta,mean,variance}``
+  * any other module's own parameter (EfficientDet's BiFPN fusion weights
+    ``wsm``)                         <->  the leaf of its name, as it is
+
+A depthwise conv is a grouped ``Conv``: HWIO [k, k, 1, C] <-> [C, 1, k, k]
+by the same transpose.
 
 ``init_params`` builds that tree without JAX, from a ``torch.Generator``,
 with the JAX initialiser families (models/layers.py:29-61, fpn.py:20-74,
-heads.py:20-57, :106-119): the same distributions, not the same bits.
+heads.py:20-57, :106-119, efficientdet/efficientnet.py:101-140,
+efficientdet/efficientdet.py:93-163): the same distributions, not the
+same bits.
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ def _leaves(model: nn.Module):
         elif isinstance(mod, FrozenBN):
             for n in _BN_NAMES:
                 yield path + (n,), getattr(mod, n), "bn"
+        else:
+            for n, t in mod.named_parameters(recurse=False):
+                yield path + (n,), t, "plain"
 
 
 def _to_torch(value: np.ndarray, kind: str) -> torch.Tensor:
@@ -99,14 +109,22 @@ def params_to_jax(model: nn.Module) -> Tree:
     return tree
 
 
-def load_npz_tree(path: str) -> Tree:
+# the roots of the native trees: Faster/Mask R-CNN, EfficientDet
+_NATIVE_ROOTS = {
+    "faster_rcnn": ("resnet/", "fpn/", "rpn/", "fastrcnn/", "maskrcnn/"),
+    "efficientdet": ("backbone/", "resample/", "fpn_cells/", "class_net/",
+                     "box_net/"),
+}
+
+
+def load_npz_tree(path: str, model_name: str = "faster_rcnn") -> Tree:
     """Nested param tree from the JAX package's native flat slash-named
     ``.npz`` (utils/weights.py:127-168), with numpy alone."""
     out: Tree = {}
     with np.load(path) as data:
         for name in data.files:
             if name.endswith(":0") or not name.startswith(
-                    ("resnet/", "fpn/", "rpn/", "fastrcnn/", "maskrcnn/")):
+                    _NATIVE_ROOTS[model_name]):
                 raise NotImplementedError(
                     f"{path}: {name!r} is not the native flat npz layout; "
                     "tensorpack/TF-named checkpoints are not ported yet "
@@ -139,6 +157,14 @@ def save_npz_tree(path: str, tree: Tree) -> None:
 
 # --------------------------------------------------------------------------
 # JAX-free init
+
+
+def _bn_leaves(c: int) -> Tree:
+    """JAX ops/norm.py init_bn: identity statistics."""
+    return {"gamma": np.ones((c,), np.float32),
+            "beta": np.zeros((c,), np.float32),
+            "mean": np.zeros((c,), np.float32),
+            "variance": np.ones((c,), np.float32)}
 
 
 class _Init:
@@ -180,10 +206,7 @@ class _Init:
         if use_bias:
             p["b"] = np.zeros((c_out,), np.float32)
         if bn:
-            p["bn"] = {"gamma": np.ones((c_out,), np.float32),
-                       "beta": np.zeros((c_out,), np.float32),
-                       "mean": np.zeros((c_out,), np.float32),
-                       "variance": np.ones((c_out,), np.float32)}
+            p["bn"] = _bn_leaves(c_out)
         return p
 
     def dense(self, d_in: int, d_out: int, w_init: str = "xavier1",
@@ -232,10 +255,13 @@ def _init_resnet(init: _Init, cfg) -> Tree:
     return params
 
 
-def init_params(config, seed: int = 0) -> Tree:
-    """JAX-layout param tree for ``FasterRCNNFPN(config)``, drawn from a
-    ``torch.Generator`` seeded with ``seed``."""
+def init_params(config, seed: int = 0, model_name: str = "faster_rcnn"
+                ) -> Tree:
+    """JAX-layout param tree for ``get_model(config, model_name)``, drawn
+    from a ``torch.Generator`` seeded with ``seed``."""
     cfg = config
+    if model_name == "efficientdet":
+        return _init_efficientdet(_Init(seed), cfg)
     if cfg.use_deformable or cfg.use_gn \
             or cfg.use_small_object_head or cfg.add_relation_nn \
             or cfg.use_att_frcnn_head or cfg.use_conv_frcnn_head:
@@ -274,4 +300,89 @@ def init_params(config, seed: int = 0) -> Tree:
         mask["conv"] = init.conv(1, hd, cfg.num_class - 1,
                                  w_init="msra_fanout")
         tree["maskrcnn"] = mask
+    return tree
+
+
+def _init_efficientnet(init: _Init, model_name: str) -> Tree:
+    """JAX efficientnet.py init_efficientnet (:117-140)."""
+    from .models.efficientdet.efficientnet import (SE_RATIO, is_lite,
+                                                   scaled_block_args,
+                                                   stem_channels)
+    cin = stem_channels(model_name)
+    params: Tree = {"stem": init.conv(3, 3, cin, False, "msra_fanout",
+                                      bn=True)}
+    use_se = not is_lite(model_name)
+    for gi, (k, _s, e, _i, o, r) in enumerate(scaled_block_args(model_name)):
+        group: Tree = {}
+        for bi in range(r):
+            c_in = cin if bi == 0 else o
+            mid = c_in * e
+            p: Tree = {}
+            if e != 1:
+                p["expand"] = init.conv(1, c_in, mid, False, "msra_fanout",
+                                        bn=True)
+            p["dw"] = init.conv(k, mid, mid, False, "msra_fanout",
+                                groups=mid, bn=True)
+            if use_se:
+                se_ch = max(1, int(c_in * SE_RATIO))
+                p["se_reduce"] = init.conv(1, mid, se_ch, w_init="msra")
+                p["se_expand"] = init.conv(1, se_ch, mid, w_init="msra")
+            p["project"] = init.conv(1, mid, o, False, "msra_fanout",
+                                     bn=True)
+            group[f"block{bi}"] = p
+        cin = o
+        params[f"group{gi}"] = group
+    return params
+
+
+def _init_efficientdet(init: _Init, cfg) -> Tree:
+    """JAX EfficientDet.init_params (efficientdet.py:93-163)."""
+    from .models.efficientdet.efficientdet import (BIFPN_NODES,
+                                                   EFFICIENTDET_CONFIGS,
+                                                   MAX_LEVEL, MIN_LEVEL,
+                                                   NUM_ANCHORS,
+                                                   backbone_channels)
+    (backbone, _size, c, fpn_repeats, head_repeats, fusion,
+     _scale) = EFFICIENTDET_CONFIGS[cfg.efficientdet_name]
+
+    def sep_conv(cin, cout):
+        return {"dw": init.conv(3, cin, cin, False, "xavier1", groups=cin),
+                "pw": init.conv(1, cin, cout, True, "xavier1")}
+
+    c3, c4, c5 = backbone_channels(backbone)
+    raw_ch = {0: c3, 1: c4, 2: c5}
+    tree: Tree = {
+        "backbone": _init_efficientnet(init, backbone),
+        "resample": {"p6": init.conv(1, c5, c, True, "xavier1", bn=True)}}
+    cells: Tree = {}
+    for rep in range(fpn_repeats):
+        cell: Tree = {}
+        for ni, (_lvl, inputs) in enumerate(BIFPN_NODES):
+            node = sep_conv(c, c)
+            node["bn"] = _bn_leaves(c)
+            if fusion == "fastattn":
+                node["wsm"] = np.ones((len(inputs),), np.float32)
+            if rep == 0:
+                for idx, off in enumerate(inputs):
+                    if off in raw_ch:
+                        node[f"resample_{idx}_{off}_{5 + ni}"] = init.conv(
+                            1, raw_ch[off], c, True, "xavier1", bn=True)
+            cell[f"fnode{ni}"] = node
+        cells[f"cell_{rep}"] = cell
+    tree["fpn_cells"] = cells
+
+    def head(out_ch, bias):
+        layers: Tree = {}
+        for i in range(head_repeats):
+            layers[f"conv{i}"] = sep_conv(c, c)
+            for lvl in range(MIN_LEVEL, MAX_LEVEL + 1):
+                layers[f"bn{i}_l{lvl}"] = _bn_leaves(c)
+        layers["predict"] = sep_conv(c, out_ch)
+        layers["predict"]["pw"]["b"] = np.full((out_ch,), bias, np.float32)
+        return layers
+
+    n_cls = cfg.num_class - 1
+    tree["class_net"] = head(n_cls * NUM_ANCHORS,
+                             -math.log((1 - 0.01) / 0.01))
+    tree["box_net"] = head(4 * NUM_ANCHORS, 0.0)
     return tree

@@ -134,7 +134,7 @@ def test_segmentation_matches_jax_cli(run_both):
 
 def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path):
     base = ["--video_dir", str(tmp_path), "--video_lst_file", "x"]
-    for flag in ("--is_efficientdet", "--use_deformable",
+    for flag in ("--use_deformable",
                  "--use_gn", "--add_relation_nn", "--use_att_frcnn_head",
                  "--use_conv_frcnn_head", "--use_lijun_video_loader"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

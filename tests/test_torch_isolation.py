@@ -3,8 +3,8 @@ solves an assignment and runs a training forward and backward with both
 ``jax`` and the JAX package blocked, no source of it (nor chip_smoke.py)
 imports the JAX package or reads one of its files, and its own copies of
 the JAX-free modules (config, class_ids, utils/masks, csrc/lapjv.cpp,
-data/training.py, data/synthetic.py, evaluation.py) hold the same values as
-the originals."""
+data/training.py, data/synthetic.py, evaluation.py, the automl name map of
+utils/effdet_weights.py) hold the same values as the originals."""
 
 import ast
 import dataclasses
@@ -56,6 +56,20 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "'--add_mask'])\n"
         "cfg = cli.build_config(args, torch.device('cpu'))\n"
         "assert cfg.resnet_depth == 101 and cfg.add_mask, cfg\n"
+        "args = cli.get_args(['--video_dir', '.', '--video_lst_file', 'x', "
+        "'--is_efficientdet', '--efficientdet_modelname', "
+        "'efficientdet-test', '--use_partial_classes'])\n"
+        "cfg = cli.build_config(args, torch.device('cpu'))\n"
+        "from object_detection_tracking_tpu_torch.models import get_model\n"
+        "from object_detection_tracking_tpu_torch.params import "
+        "init_params, params_from_jax\n"
+        "from object_detection_tracking_tpu_torch.utils import "
+        "effdet_weights\n"
+        "m = params_from_jax(init_params(cfg, 0, 'efficientdet'), "
+        "get_model(cfg, 'efficientdet'))\n"
+        "out = m(torch.zeros(1, 72, 128, 3, dtype=torch.uint8))\n"
+        "assert out['pooled_box_feat'].shape == (1, 100, 32), out\n"
+        "assert effdet_weights.effdet_name_map(m)\n"
         "rows, cols = assignment.linear_sum_assignment(\n"
         "    np.array([[4., 1., 3.], [2., 0., 5.], [3., 2., 2.]]))\n"
         "assert sorted(zip(rows.tolist(), cols.tolist())) == "
@@ -244,3 +258,22 @@ def test_masks_match_jax():
         assert rle == jm.rle_encode(ref)
         np.testing.assert_array_equal(tm.rle_decode(rle), ref)
         np.testing.assert_array_equal(jm.rle_decode(rle), got)
+
+
+@pytest.mark.parametrize("name", ["efficientdet-test", "efficientdet-d0",
+                                  "efficientdet-d6"])
+def test_effdet_name_map_equals_the_original(name):
+    """The port's copy of utils/effdet_weights.py maps every automl name
+    to the same tree path and kind as the JAX module."""
+    from object_detection_tracking_tpu.config import DetectorConfig
+    from object_detection_tracking_tpu.models.efficientdet import \
+        EfficientDet as JE
+    from object_detection_tracking_tpu.utils import effdet_weights as jw
+    from object_detection_tracking_tpu_torch.models.efficientdet import \
+        EfficientDet as TE
+    from object_detection_tracking_tpu_torch.utils import \
+        effdet_weights as tw
+    jcfg = DetectorConfig.coco(efficientdet_name=name)
+    tcfg = tconfig.DetectorConfig.coco(efficientdet_name=name)
+    assert tw.effdet_name_map(TE(tcfg)) == jw.effdet_name_map(JE(jcfg))
+    assert tw._BN == jw._BN

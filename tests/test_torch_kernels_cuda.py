@@ -152,8 +152,115 @@ def test_roi_align_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         RA.multilevel_roi_align_cuda(
             [f.permute(0, 2, 1, 3) for f in feats], boxes, STRIDES, 7)
-    with pytest.raises(ValueError):
-        RA.multilevel_roi_align_cuda(feats[:3], boxes, STRIDES[:3], 7)
+    with pytest.raises(ValueError):    # one stride per level
+        RA.multilevel_roi_align_cuda(feats[:3], boxes, STRIDES, 7)
+    with pytest.raises(ValueError):    # at most five levels
+        RA.multilevel_roi_align_cuda(feats + feats[:2], boxes,
+                                     STRIDES + (64, 128), 7)
+    with pytest.raises(ValueError):    # levels [B, N]
+        RA.multilevel_roi_align_cuda(feats, boxes, STRIDES, 7,
+                                     levels=torch.zeros(8, device=cuda))
+
+
+EFFDET_STRIDES = (8, 16, 32, 64, 128)
+
+
+def effdet_inputs(dev, dtype, c, size=512, b=2, n=100, seed=13):
+    """EfficientDet's B1 launch: P3..P7 of a size x size input (P7 is
+    size/128 pixels a side), n boxes per image with explicit levels that
+    mostly disagree with the canonical map, some out of range (clamped),
+    and JAX's invalid slots: zero boxes on level 0. Boxes hug P7's far
+    edge and the image's corners."""
+    rng = np.random.RandomState(seed)
+    feats = [torch.from_numpy(rng.randn(b, size // s, size // s, c)
+                              .astype(np.float32)).to(dev, dtype)
+             for s in EFFDET_STRIDES]
+    side = np.exp(rng.uniform(np.log(4), np.log(size), (b, n)))
+    ar = np.exp(rng.uniform(-np.log(4), np.log(4), (b, n)))
+    x0 = rng.uniform(-10, size, (b, n))
+    y0 = rng.uniform(-10, size, (b, n))
+    boxes = np.stack([x0, y0, x0 + side * np.sqrt(ar),
+                      y0 + side / np.sqrt(ar)], -1).clip(0, size)
+    levels = rng.randint(-1, 7, (b, n))
+    # P7's edge: the last row/column of its 4x4 (at 512) map
+    boxes[:, 0] = [size - 128, size - 128, size, size]
+    boxes[:, 1] = [size - 40, 0, size, 30]
+    levels[:, :2] = 4
+    boxes[:, 2] = [0, 0, size, size]
+    levels[:, 2] = 0
+    invalid = np.zeros((b, n), bool)
+    invalid[:, -10:] = True
+    boxes[invalid] = 0.0
+    levels[invalid] = 0
+    return (feats, torch.from_numpy(boxes.astype(np.float32)).to(dev),
+            torch.from_numpy(levels.astype(np.int32)).to(dev),
+            torch.from_numpy(~invalid).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,size", [(32, 128), (64, 512), (88, 640),
+                                    (384, 512), (36, 256)])
+def test_roi_align_kernel_five_levels_explicit(cuda, dtype, c, size):
+    """EfficientDet's mode: P3..P7, the caller's per-ROI levels (clamped
+    into 0..4), at the test width 32, d0's 64, d1's 88, d6/d7's 384 (48
+    16-byte chunks: a second pass of a warp's lanes) and 36 (the scalar
+    path); invalid zero boxes pooled, not skipped (valid=None), as
+    EfficientDet's forward does."""
+    dt = getattr(torch, dtype)
+    feats, boxes, levels, valid = effdet_inputs(cuda, dt, c, size)
+    canon = RA.fpn_map_rois_to_levels(boxes)
+    assert (canon != levels.clamp(0, 4)).float().mean().item() > 0.5
+    before = RA.multilevel_roi_align_cuda.launches
+    got = RA.multilevel_roi_align_cuda(feats, boxes, EFFDET_STRIDES, 7,
+                                       levels=levels)
+    torch.cuda.synchronize()
+    assert RA.multilevel_roi_align_cuda.launches == before + 1
+    ref = RA.multilevel_roi_align(feats, boxes, EFFDET_STRIDES, 7,
+                                  levels=levels)
+    assert got.shape == (2, 100, 7, 7, c)
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert (got[~valid] == 0).all()
+    if size >= 256:                              # P7 at least 2 x 2
+        assert got[:, :2].abs().amax().item() > 0   # P7's edge boxes read
+    masked = RA.multilevel_roi_align_cuda(feats, boxes, EFFDET_STRIDES, 7,
+                                          valid=valid, levels=levels)
+    assert torch.equal(masked, got)
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_refuses_five_levels(cuda):
+    feats, boxes, levels, _ = effdet_inputs(cuda, torch.float32, 64)
+    g = torch.zeros(2, 100, 7, 7, 64, device=cuda)
+    with pytest.raises(ValueError, match="exactly 4 levels"):
+        RA.multilevel_roi_align_backward_cuda(feats, boxes, EFFDET_STRIDES,
+                                              7, g, levels=levels)
+
+
+@pytest.mark.cuda
+def test_efficientdet_forward_with_kernel_matches_plain(cuda):
+    """EfficientDet's forward (efficientdet-test, f32, TF32 off) with B1
+    against the same forward with the plain ROIAlign: one launch, equal
+    detections, embeddings within 1e-4 of their largest magnitude."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DetectorConfig.coco_partial(
+        result_per_im=20, compute_dtype="float32",
+        efficientdet_name="efficientdet-test", roi_align_impl="pallas")
+    model = get_model(cfg, "efficientdet")
+    params_from_jax(init_params(cfg, 0, "efficientdet"), model)
+    model = model.to(cuda).eval()
+    imgs = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 255, (2, 96, 128, 3)).astype(np.uint8)).to(cuda)
+    before = RA.multilevel_roi_align_cuda.launches
+    got = model(imgs)
+    assert RA.multilevel_roi_align_cuda.launches == before + 1
+    model.config = dataclasses.replace(cfg, roi_align_impl="xla")
+    ref = model(imgs)
+    for k in ("final_boxes", "final_labels", "final_valid"):
+        assert torch.equal(got[k], ref[k]), k
+    scale = ref["pooled_box_feat"].abs().max().item()
+    assert (got["pooled_box_feat"] - ref["pooled_box_feat"]).abs().max() \
+        .item() <= 1e-4 * scale
 
 
 @pytest.mark.cuda

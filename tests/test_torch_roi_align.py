@@ -149,6 +149,73 @@ def test_explicit_levels_and_bf16_features_match_jax():
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
 
 
+EFFDET_STRIDES = (8, 16, 32, 64, 128)
+
+
+def effdet_case(rng, b, n, c=8, size=128):
+    """EfficientDet's pooling: P3..P7 of a size x size input (P7 is
+    size/128 pixels a side), explicit per-ROI levels, some outside 0..4
+    (clamped), JAX's invalid slots (zero box, level 0), and boxes on P7's
+    edge."""
+    feats = [rng.randn(b, size // s, size // s, c).astype(np.float32)
+             for s in EFFDET_STRIDES]
+    boxes = make_boxes(rng, b, n, size, size, 2, size, 3.0)
+    levels = rng.randint(-2, 8, (b, n)).astype(np.int32)
+    boxes[:, 0] = [size - 128, size - 128, size, size]
+    levels[:, 0] = 4
+    boxes[:, 1] = [0, size - 40, 50, size]
+    levels[:, 1] = 9
+    boxes[:, -3:] = 0.0
+    levels[:, -3:] = 0
+    return feats, boxes, levels
+
+
+@functools.partial(jax.jit, static_argnums=3)
+def _jax_mra5(feats, boxes, levels, pool):
+    return jax.vmap(lambda f3, f4, f5, f6, f7, bx, lv: jax_mra(
+        [f3, f4, f5, f6, f7], bx, EFFDET_STRIDES, pool, levels=lv))(
+            *feats, boxes, levels)
+
+
+def jax_ref5(feats, boxes, levels, pool=7):
+    return np.asarray(_jax_mra5(feats, boxes, levels, pool))
+
+
+@pytest.mark.parametrize("size,c,n", [(128, 8, 12), (256, 32, 30),
+                                      (640, 4, 9)])
+def test_five_levels_explicit_levels_match_jax(size, c, n):
+    """Five levels with explicit, partly out-of-range levels and zero
+    boxes: the plain version against JAX ``multilevel_roi_align(...,
+    levels=)``, which clamps the levels into 0..4 the same way."""
+    rng = np.random.RandomState(size + n)
+    feats, boxes, levels = effdet_case(rng, 2, n, c, size)
+    got = RA.multilevel_roi_align(
+        [torch.from_numpy(f) for f in feats], torch.from_numpy(boxes),
+        EFFDET_STRIDES, 7, levels=torch.from_numpy(levels)).numpy()
+    ref = jax_ref5(feats, boxes, levels)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    if size >= 256:                             # P7 at least 2 x 2
+        assert np.abs(got[:, 0]).max() > 0      # P7's edge box reads
+    assert not got[:, -3:].any()                # zero boxes pool to 0
+    clamped = RA.multilevel_roi_align(
+        [torch.from_numpy(f) for f in feats], torch.from_numpy(boxes),
+        EFFDET_STRIDES, 7,
+        levels=torch.from_numpy(levels.clip(0, 4))).numpy()
+    assert np.array_equal(got, clamped)
+
+
+def test_wrapper_five_levels_takes_plain_version_on_cpu():
+    rng = np.random.RandomState(21)
+    feats, boxes, levels = effdet_case(rng, 2, 10)
+    before = RA.multilevel_roi_align_cuda.launches
+    got = RA.multilevel_roi_align_cuda(
+        [torch.from_numpy(f) for f in feats], torch.from_numpy(boxes),
+        EFFDET_STRIDES, 7, levels=torch.from_numpy(levels)).numpy()
+    assert RA.multilevel_roi_align_cuda.launches == before
+    np.testing.assert_allclose(got, jax_ref5(feats, boxes, levels),
+                               atol=1e-4, rtol=0)
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     rng = np.random.RandomState(9)
     feats = make_feats(rng, b=2, h=256, w=384)

@@ -190,3 +190,80 @@ def train_setup(freeze, add_mask, key=3):
     tm = params_from_jax(params, get_model(tcfg))
     tbatch = [None if x is None else torch.from_numpy(x) for x in batch]
     return jm, params, batch, rng, noise, tm, tbatch
+
+
+# --------------------------------------------------------------------------
+# EfficientDet
+
+
+def port_config(jcfg, **overrides):
+    """The port's DetectorConfig with the values of the JAX one."""
+    import dataclasses
+
+    from object_detection_tracking_tpu_torch.config import \
+        DetectorConfig as PortConfig
+    return PortConfig(**{**dataclasses.asdict(jcfg), **overrides})
+
+
+def calibrating_bn(bn, x):
+    """A BN that first sets its statistics from its NCHW input: every
+    channel the mean and variance of the whole input (one pair per site,
+    so that P7's 1x1 maps of a small batch give a stable variance), then
+    applies them."""
+    from object_detection_tracking_tpu_torch.ops.norm import frozen_bn
+    bn.mean.fill_(x.mean().item())
+    bn.variance.fill_(x.var(unbiased=False).item())
+    return frozen_bn(bn, x)
+
+
+def effdet_params(jcfg, images, seed=0):
+    """(port EfficientDet, its JAX-layout param tree) for config ``jcfg``:
+    the port's JAX-free init, the fusion weights ``wsm`` drawn from
+    U(-0.3, 1.5) (so relu and the normalisation act), each BN's gamma from
+    U(0.8, 1.2) and beta from N(0, 0.2), and then each BN site's statistics
+    set from its input on ``images`` (uint8 [B, h, w, 3]):
+    ``calibrating_bn``. With the init's identity statistics the
+    activations shrink by ~100x at every depthwise conv and the comparison
+    would only see zeros; calibrated, every level carries unit-scale
+    features and the class logits spread around the prior. As
+    ``jax_params`` does for ResNet, each MBConv's project BN gamma is
+    scaled by 0.2: random blocks at full gain amplify float32 rounding
+    ~1.3x each, so that after B0's 16 blocks and two BiFPN cells JAX's own
+    jitted and eager forwards differ by 1.2e-5 of the largest probability
+    (1e-6 with the scaling). The box net's last conv is scaled by 0.1
+    (below)."""
+    import torch
+
+    from object_detection_tracking_tpu_torch.models import get_model
+    from object_detection_tracking_tpu_torch.params import (init_params,
+                                                            params_from_jax,
+                                                            params_to_jax)
+    cfg = port_config(jcfg)
+    tree = init_params(cfg, seed, "efficientdet")
+    rng = np.random.RandomState(seed)
+    for name, leaf in flat(tree).items():
+        node = tree
+        parts = name.split("/")
+        for k in parts[:-1]:
+            node = node[k]
+        if parts[-1] == "wsm":
+            node["wsm"] = rng.uniform(-0.3, 1.5, leaf.shape).astype(
+                np.float32)
+        elif parts[-1] == "gamma":
+            node["gamma"] = rng.uniform(0.8, 1.2, leaf.shape).astype(
+                np.float32)
+        elif parts[-1] == "beta":
+            node["beta"] = (0.2 * rng.randn(*leaf.shape)).astype(np.float32)
+    # box deltas of a trained regressor's scale (std ~0.1, not ~1): a
+    # float32 rounding of a delta moves a box by the delta's error times
+    # the anchor's size (up to 645 px at P7)
+    tree["box_net"]["predict"]["pw"]["W"] *= 0.1
+    for gname, group in tree["backbone"].items():
+        if gname.startswith("group"):
+            for blk in group.values():
+                blk["project"]["bn"]["gamma"] *= 0.2
+    model = params_from_jax(tree, get_model(cfg, "efficientdet"))
+    with torch.no_grad():
+        feats = model.features(torch.from_numpy(images), bn=calibrating_bn)
+        model.heads(feats, bn=calibrating_bn)
+    return model, params_to_jax(model)

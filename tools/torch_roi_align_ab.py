@@ -7,8 +7,9 @@ version of it, unpacked into a git-ignored directory).
     python3 tools/torch_roi_align_ab.py OTHER.cu [OTHER2.cu ...]
     python3 tools/torch_roi_align_ab.py --backward OTHER.cu [...]
 
-The forward (default; every source exports ``roi_align_forward`` with the
-same signature). The launches, all bf16 with C=256:
+The forward (default; every source exports ``roi_align_forward``: with up
+to five levels and a level count, as the port's today, or with exactly
+four, as before EfficientDet's mode; the tool calls either). The launches, all bf16 with C=256:
   * the ActEV path's three, on one forward's own inputs (R101-FPN v4 at
     1920x1080 with masks, B=8, chip_smoke.py's random weights for phase 7):
     N=1000 P=7 (proposals), N=100 P=7 (final boxes), N=100 P=14 (masks);
@@ -54,17 +55,36 @@ sys.path.insert(0, ROOT)
 import chip_smoke as CS  # noqa: E402  (blocks any import of JAX)
 
 
+# roi_align_forward's arguments before five levels: f0..f3, (h, w) x4,
+# strides x4, boxes, levels, valid, out, then 5 ints and the stream
+FOUR_LEVEL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [
+    ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
 def load(src, stem):
-    """roi_align_forward of ``src``, built by native.py's nvcc command."""
+    """roi_align_forward of ``src``, built by native.py's nvcc command,
+    callable with the port's wrapper's arguments (five level slots and a
+    count): a four-level source gets the first four of each."""
     from object_detection_tracking_tpu_torch import native
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
     path = native.build_shared(
         os.path.abspath(src), [native.cuda_tool("nvcc")] + native.NVCC_FLAGS,
         stem)
     fn = ctypes.CDLL(path).roi_align_forward
-    fn.argtypes = RA._ARGTYPES
     fn.restype = ctypes.c_int
-    return fn
+    with open(src) as f:
+        if "kMaxLevels" in f.read():
+            fn.argtypes = RA._ARGTYPES
+            return fn
+    fn.argtypes = FOUR_LEVEL_ARGTYPES
+
+    def four_levels(*args):
+        ptrs, dims, strides, count = args[:5], args[5:15], args[15:20], \
+            args[20]
+        if count != 4:
+            raise ValueError(f"{src} takes exactly 4 levels, not {count}")
+        return fn(*ptrs[:4], *dims[:8], *strides[:4], *args[21:])
+    return four_levels
 
 
 def launch_cases():
