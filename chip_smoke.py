@@ -82,6 +82,26 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                by kernel kind; then one bf16 forward of d6 (B=8, 1280x720
                into 1280x1280, 8 BiFPN repeats with sum fusion, C=384)
                with its B1 launch checked the same way; peak memory
+ 11. effdet-train  EfficientDet training through the train loop (cli/main.py
+               train, with the config the JAX quality proof builds:
+               model="efficientdet"): d0 at its own 512x512 input, the
+               proof's --version 2 --num_class 16, B=8, Adam at 1e-3 with
+               clip 10 and a constant LR, bf16, 8 steps on one repeated
+               in-memory batch of synthetic rectangles (gt padded to
+               --max_gt), checkpoints, the BN calibration before the final
+               checkpoint and final.npz (every site's statistics moved off
+               the init's); every loss finite, the total falling, positive
+               anchors; no B1, B1b or B2 launch (the path has no ROIAlign
+               and no ResNet); the step's time split (forward+loss,
+               backward, optimizer) by CUDA events, the peak device memory,
+               the device's busy share of one step and its kernel time by
+               kind; calibrate_bn on the batch writing every BN site; a
+               bf16 inference forward with the calibrated weights;
+               effdet_anchor_targets on the card equal bit for bit to the
+               CPU's on a batch with duplicate force-match writes and
+               padded rows; one f32 step at B=2 on the card against the
+               same step on this machine's CPU (losses, every gradient
+               leaf)
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -147,6 +167,21 @@ B1B_REL = 1e-5
 # such flips move a leaf by up to 7.2e-3 of its max between the port and
 # JAX on the CPU; on an H100 they have moved one by 6.93e-5)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
+# EfficientDet training (phase 11): the model and its own input size, the
+# JAX quality proof's batch, the steps on one repeated batch, the f32
+# card-vs-CPU step's batch
+EFFDET_TRAIN, EFFDET_TRAIN_SIZE = "efficientdet-d0", 512
+EFFDET_TRAIN_BATCH, EFFDET_TRAIN_STEPS, EFFDET_F32_BATCH = 8, 8, 2
+# gradient leaves that vanish in exact arithmetic: batch-statistics BN
+# removes any per-channel constant added before it, so the bias of a conv
+# that feeds a BN and the beta of each MBConv's project BN (its map
+# reaches BNs only through 1x1 convs) take float32 rounding noise on any
+# device; they must stay within NOISE_SHARE of the largest leaf gradient
+# (tests/test_torch_effdet_train.py measures up to 1.1e-6 against JAX)
+INVARIANT_LEAF = re.compile(
+    r"(^resample/p6|/resample_\d+_\d+_\d+|/fnode\d+/pw|_net/conv\d+/pw)/b$"
+    r"|^backbone/group\d+/block\d+/project/bn/beta$")
+NOISE_SHARE = 1e-5
 # f32 forward, ROIAlign kernel vs plain: share of the plain run's
 # detections matched by the kernel run (same label, box within 0.5 px).
 # Sums ~1e-6 apart can swap two detections' ranks; only a swap across the
@@ -840,7 +875,6 @@ def phase_profile(model, x, phase="profile", unfused=None):
     forwards under torch.profiler (after one profiled warm-up, which
     absorbs the tracer's start-up). Returns a summary dict."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def host_wall(m):
@@ -860,11 +894,34 @@ def phase_profile(model, x, phase="profile", unfused=None):
             for _ in range(2):
                 model(x)
             torch.cuda.synchronize()
-    # kernel events only: CPU ops also carry the device time of the
-    # kernels they launch, which would count it twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events) / 2e3
+    unfused_msg = ("" if wall_unfused is None else
+                   f"; unfused backbone {wall_unfused:.1f} ms")
+    total, groups = kernel_kinds(prof, 2)
+    log(phase, f"one forward of {BATCH} frames: {wall:.1f} ms host wall "
+        f"(median of 5, synchronized){unfused_msg}; {total:.1f} ms of kernel "
+        f"time (torch.profiler, mean of 2), device busy "
+        f"{100 * total / wall:.0f}% of the forward")
+    log_kernel_kinds(phase, prof, 2, groups)
+    return {"wall_ms": wall, "wall_unfused_ms": wall_unfused,
+            "kernel_ms": total, "by_kind": groups}
+
+
+def _cuda_events(prof):
+    """The profile's kernel events only: CPU ops also carry the device
+    time of the kernels they launch, and a user annotation's device span
+    (the optimizer's ``Optimizer.step#Adam.step``) covers kernels listed
+    on their own, which would count them twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_kinds(prof, runs):
+    """(kernel ms per run, {kind: ms per run}) of a torch.profiler
+    profile over ``runs`` runs."""
+    events = _cuda_events(prof)
+    total = sum(e.self_device_time_total for e in events) / 1e3 / runs
     groups = {}
     for e in events:
         k = e.key.lower()
@@ -872,27 +929,26 @@ def phase_profile(model, x, phase="profile", unfused=None):
              "bottleneck_stage (csrc)" if "bneck_conv" in k else
              "conv (cuDNN)" if any(t in k for t in (
                  "fprop", "conv", "xmma", "cutlass", "implicit", "dgrad",
-                 "nchw", "nhwc")) else
+                 "wgrad", "nchw", "nhwc")) else
              "gemm" if "gemm" in k or "sm90_xmma" in k else
              "sort" if "sort" in k or "radix" in k else
              "reduce" if "reduce" in k else
              "copy/cast" if "copy" in k else "elementwise/other")
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 2e3
-    unfused_msg = ("" if wall_unfused is None else
-                   f"; unfused backbone {wall_unfused:.1f} ms")
-    log(phase, f"one forward of {BATCH} frames: {wall:.1f} ms host wall "
-        f"(median of 5, synchronized){unfused_msg}; {total:.1f} ms of kernel "
-        f"time (torch.profiler, mean of 2), device busy "
-        f"{100 * total / wall:.0f}% of the forward")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 \
+            / runs
+    return total, groups
+
+
+def log_kernel_kinds(phase, prof, runs, groups):
+    """Logs the kinds' times and the ten slowest kernels of a profile."""
     log(phase, "  by kind: " + ", ".join(
         f"{g} {t:.2f} ms" for g, t in sorted(groups.items(),
                                              key=lambda kv: -kv[1])))
-    events.sort(key=lambda e: -e.self_device_time_total)
+    events = sorted(_cuda_events(prof),
+                    key=lambda e: -e.self_device_time_total)
     for e in events[:10]:
-        log(phase, f"  {e.self_device_time_total / 2e3:8.3f} ms "
-            f"x{e.count // 2:<4d} {e.key[:80]}")
-    return {"wall_ms": wall, "wall_unfused_ms": wall_unfused,
-            "kernel_ms": total, "by_kind": groups}
+        log(phase, f"  {e.self_device_time_total / 1e3 / runs:8.3f} ms "
+            f"x{e.count // runs:<4d} {e.key[:80]}")
 
 
 def stage_blocks(n, c_in, width, gen):
@@ -1517,24 +1573,24 @@ class MemoryBatches:
             yield self.batch
 
 
-def train_batch(cfg, max_gt, b=TRAIN_BATCH, seed=2):
-    """b synthetic 1920x1080 BGR frames (SyntheticVideo's moving
-    rectangles) with their rectangles as gt: boxes padded to ``max_gt``,
-    Person and Vehicle labels in turn, box-local 28x28 masks (a rectangle
-    fills its box). Returns numpy (images, gt_boxes, gt_labels, gt_valid,
-    gt_masks)."""
+def train_batch(cfg, max_gt, b=TRAIN_BATCH, seed=2, h=ACTEV_H, w=ACTEV_W):
+    """b synthetic BGR frames (SyntheticVideo's moving rectangles, 1920x1080
+    unless given another size) with their rectangles as gt: boxes padded to
+    ``max_gt``, Person and Vehicle labels in turn, box-local 28x28 masks (a
+    rectangle fills its box). Returns numpy (images, gt_boxes, gt_labels,
+    gt_valid, gt_masks)."""
     import numpy as np
-    video = SyntheticVideo(b, seed=seed, h=ACTEV_H, w=ACTEV_W)
+    video = SyntheticVideo(b, seed=seed, h=h, w=w)
     images = np.stack([video.read()[1] for _ in range(b)])
     ids = [cfg.classname2id["Person"], cfg.classname2id["Vehicle"]]
     boxes = np.zeros((b, max_gt, 4), np.float32)
     labels = np.zeros((b, max_gt), np.int32)
     valid = np.zeros((b, max_gt), bool)
     for i in range(b):
-        for j, (x0, y0, vx, vy, w, h, _) in enumerate(video.objs):
-            x = int(x0 + vx * i) % (ACTEV_W - w)
-            y = int(y0 + vy * i) % (ACTEV_H - h)
-            boxes[i, j] = (x, y, x + w, y + h)
+        for j, (x0, y0, vx, vy, ow, oh, _) in enumerate(video.objs):
+            x = int(x0 + vx * i) % (w - ow)
+            y = int(y0 + vy * i) % (h - oh)
+            boxes[i, j] = (x, y, x + ow, y + oh)
             labels[i, j] = ids[j % 2]
             valid[i, j] = True
     masks = np.ones((b, max_gt, 28, 28), np.float32)
@@ -1848,6 +1904,332 @@ def train_f32_check(cfg, tree, tb):
             "losses_kernel": lk, "losses_plain": lp}
 
 
+def effdet_train_setup(tmp, device):
+    """The train CLI's flags with the JAX quality proof's EfficientDet
+    choices (--version 2 --num_class 16, Adam at 1e-3, clip 10; here a
+    constant LR, B=8, 8 steps), the config the proof builds from them
+    (model="efficientdet", d0, its 512 input, score threshold 0.05), the
+    model through ``build_model`` (random weights from seed 0) and a batch
+    of synthetic 512x512 rectangles. Writes under ``tmp``."""
+    from object_detection_tracking_tpu_torch.cli import main as train_cli
+    steps = EFFDET_TRAIN_STEPS
+    args = train_cli.get_args([
+        "train", "--version", "2", "--num_class", "16", "--short_edge_size",
+        str(EFFDET_TRAIN_SIZE), "--max_size", str(EFFDET_TRAIN_SIZE),
+        "--im_batch_size", str(EFFDET_TRAIN_BATCH), "--num_step", str(steps),
+        "--optimizer", "adam", "--init_lr", "1e-3", "--lr_schedule",
+        "constant", "--warmup_steps", "0", "--clip_gradient_norm", "10",
+        "--save_every", str(steps // 2), "--outbasepath",
+        os.path.join(tmp, "effdet_train"), "--device", device.type])
+    cfg = dataclasses.replace(
+        train_cli.build_config(args, True, device), model="efficientdet",
+        efficientdet_name=EFFDET_TRAIN,
+        efficientdet_image_size=EFFDET_TRAIN_SIZE, result_score_thres=0.05)
+    model = train_cli.build_model(args, cfg, device)
+    got = (cfg.compute_dtype, cfg.num_class, cfg.is_train, model.name,
+           model.image_size, model.backbone_name, model.fpn_filters,
+           model.fpn_repeats, model.head_repeats)
+    if got != ("bfloat16", 16, True, "efficientdet-d0", 512,
+               "efficientnet-b0", 64, 3, 3):
+        raise AssertionError(f"not the proof's d0 training setup: {got}")
+    batch = train_batch(cfg, args.max_gt, b=EFFDET_TRAIN_BATCH, seed=4,
+                        h=EFFDET_TRAIN_SIZE, w=EFFDET_TRAIN_SIZE)
+    return args, cfg, model, batch
+
+
+def train_step_profile(trainer, tb, phase):
+    """Host wall of one synchronized train step (median of 5), then the
+    device's kernel time over two steps under torch.profiler (after a
+    profiled warm-up): the busy share of a step and its time by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        trainer.backward(trainer.losses(*tb))
+        trainer.apply_gradients()
+
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = sorted(walls)[2]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+    total, groups = kernel_kinds(prof, 2)
+    n_kernels = sum(e.count for e in _cuda_events(prof)) // 2
+    log(phase, f"one train step: {wall:.1f} ms host wall (median of 5, "
+        f"synchronized); {total:.1f} ms of kernel time in {n_kernels} "
+        f"kernel launches (torch.profiler, mean of 2), device busy "
+        f"{100 * total / wall:.0f}% of the step")
+    log_kernel_kinds(phase, prof, 2, groups)
+    return {"wall_ms": wall, "kernel_ms": total, "busy": total / wall,
+            "kernel_launches": n_kernels, "by_kind": groups}
+
+
+def effdet_targets_check(model, batch):
+    """effdet_anchor_targets on the card against the same call on the CPU,
+    bit for bit, on the training batch's gt with, in image 0, two copies
+    of its first gt (one best anchor, written twice: the later row wins)
+    with the other label, a box in the top-left corner whose best anchor
+    lies near anchor 0, and padded rows after them (an invalid row's best
+    anchor is anchor 0, where it writes -1)."""
+    import torch
+    from object_detection_tracking_tpu_torch.train.targets import \
+        effdet_anchor_targets
+    boxes, labels, valid = (x.copy() for x in batch[1:4])
+    j = int(valid[0].sum())
+    if j + 3 >= boxes.shape[1]:
+        raise AssertionError("no room for the duplicate gts")
+    boxes[0, j:j + 2] = boxes[0, 0]
+    labels[0, j:j + 2] = labels[0, 1]
+    boxes[0, j + 2] = (0.0, 0.0, 20.0, 20.0)
+    labels[0, j + 2] = labels[0, 0]
+    valid[0, j:j + 3] = True
+    anchors, _ = model._anchor_set()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = effdet_anchor_targets(
+            anchors.to(dev), *(torch.from_numpy(x).to(dev)
+                               for x in (boxes, labels, valid)))
+    names = ("cls_targets", "box_targets", "fg")
+    for name, a, b in zip(names, out["cuda"], out["cpu"]):
+        a = a.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"effdet_anchor_targets {name}: the card's "
+                                 f"differ from the CPU's")
+    res = {"anchors": anchors.shape[0], "gt_rows": int(boxes.shape[1]),
+           "valid_gts": int(valid.sum()), "fg": int(out["cpu"][2].sum())}
+    log("effdet-train", f"effdet_anchor_targets, card vs CPU: labels, box "
+        f"targets and fg equal bit for bit ({anchors.shape[0]} anchors, "
+        f"B={boxes.shape[0]}, {boxes.shape[1]} gt rows, {res['valid_gts']} "
+        f"valid, duplicate gts in image 0, {res['fg']} fg anchors)")
+    return res
+
+
+def effdet_f32_check(cfg, tree, batch):
+    """One f32 forward_train + backward at B=EFFDET_F32_BATCH (TF32 off)
+    on the card and on this machine's CPU, same weights and batch: losses
+    within TRAIN_LOSS_REL, every gradient leaf within TRAIN_GRAD_REL of
+    its largest magnitude, but the INVARIANT_LEAF ones, which must lie
+    within NOISE_SHARE of the largest leaf gradient on both."""
+    import torch
+    from object_detection_tracking_tpu_torch.models import get_model
+    from object_detection_tracking_tpu_torch.params import (_leaves,
+                                                            params_from_jax)
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    results = []
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(tree, get_model(c)).to(dev)
+        tb = [torch.from_numpy(x[:EFFDET_F32_BATCH]).to(dev)
+              for x in batch[:4]]
+        t0 = time.perf_counter()
+        losses = model.forward_train(*tb)
+        losses["total_loss"].backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        grads = {"/".join(p): (t.grad if t.grad is not None
+                               else torch.zeros_like(t)).cpu()
+                 for p, t, _ in _leaves(model)}
+        results.append(({k: v.item() for k, v in losses.items()}, grads,
+                        sec))
+        del model, losses
+    (lk, gk, sk), (lp, gp, sp) = results
+    loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    if not loss_rel <= TRAIN_LOSS_REL:
+        raise AssertionError(f"effdet f32: losses card {lk} vs CPU {lp}")
+    top = max(g.abs().max().item() for g in gp.values())
+    invariant = [k for k in gp if INVARIANT_LEAF.search(k)]
+    noise = 0.0
+    for k in invariant:
+        noise = max(noise, gk.pop(k).abs().max().item() / top,
+                    gp.pop(k).abs().max().item() / top)
+    if not noise <= NOISE_SHARE:
+        raise AssertionError(f"effdet f32: an invariant leaf's gradient is "
+                             f"{noise} of the largest, > {NOISE_SHARE}")
+    shares = leaf_shares(gk, gp)
+    worst = max(shares, key=shares.get)
+    if not shares[worst] <= TRAIN_GRAD_REL:
+        raise AssertionError(f"effdet f32: gradient of {worst} off by "
+                             f"{shares[worst]} of its max > {TRAIN_GRAD_REL}")
+    vals = sorted(shares.values())
+    log("effdet-train", f"f32 step at B={EFFDET_F32_BATCH}, card vs CPU "
+        f"({sk:.2f} s vs {sp:.2f} s): losses within {loss_rel:.3g} (bound "
+        f"{TRAIN_LOSS_REL}); gradients of {len(vals)} leaves within "
+        f"{vals[-1]:.3g} of each leaf's max (worst {worst}; median "
+        f"{vals[len(vals) // 2]:.3g}; bound {TRAIN_GRAD_REL}); "
+        f"{len(invariant)} invariant leaves within {noise:.3g} of the "
+        f"largest gradient (bound {NOISE_SHARE})")
+    return {"loss_rel": loss_rel, "grad_share_max": vals[-1],
+            "grad_share_median": vals[len(vals) // 2], "worst_leaf": worst,
+            "invariant_leaves": len(invariant), "invariant_noise": noise,
+            "losses_card": lk, "losses_cpu": lp}
+
+
+def phase_effdet_train(tmp):
+    """EfficientDet-d0 training through the train loop, its checks, the
+    step's split, busy share and peak, the BN calibration, a calibrated
+    inference forward, the targets and the f32 step (phase 11 of the
+    module note). Returns a summary dict."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import main as train_cli
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.ops.norm import FrozenBN
+    from object_detection_tracking_tpu_torch.params import (load_npz_tree,
+                                                            params_to_jax)
+
+    device = torch.device("cuda")
+    steps, b = EFFDET_TRAIN_STEPS, EFFDET_TRAIN_BATCH
+    args, cfg, model, batch = effdet_train_setup(tmp, device)
+    n_bn = sum(isinstance(m, FrozenBN) for m in model.modules())
+    n_params = sum(p.numel() for p in model.parameters())
+    counters = (RA.multilevel_roi_align_cuda,
+                RA.multilevel_roi_align_backward_cuda,
+                RS.fused_bottleneck_stage_cuda)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = train_cli.train(args, cfg, model, MemoryBatches(batch, steps))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    losses = res["losses"]
+    log("effdet-train", f"main.py train: {model.name} ({model.backbone_name}"
+        f", BiFPN {model.fpn_filters} x{model.fpn_repeats}, heads "
+        f"x{model.head_repeats}), {n_params} params, {cfg.num_class - 1} "
+        f"classes, {model.image_size}x{model.image_size}, B={b}, "
+        f"{cfg.compute_dtype}, Adam {args.init_lr} constant, clip "
+        f"{args.clip_gradient_norm}, {args.max_gt} gt rows "
+        f"({int(batch[3].sum())} valid); {res['step']} steps, calibration "
+        f"and checkpoints in {wall:.2f} s wall; total loss per step: "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    for line in printed.getvalue().splitlines():
+        log("effdet-train", f"  train: {line}")
+    if res["step"] != steps or len(losses) != steps:
+        raise AssertionError(f"{res['step']} steps, want {steps}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: "
+                             f"{losses}")
+    if any(launches.values()):
+        raise AssertionError(f"the EfficientDet train path launched a "
+                             f"kernel: {launches}")
+    if f"calibrated {n_bn} BN sites over {steps} batches" not in \
+            printed.getvalue():
+        raise AssertionError(f"train did not calibrate all {n_bn} BN sites")
+    ckpts = sorted(os.listdir(train_cli.checkpoint_dir(args)))
+    if ckpts != sorted([f"step_{steps // 2}.pt", f"step_{steps}.pt"]):
+        raise AssertionError(f"checkpoints {ckpts}")
+    final = load_npz_tree(os.path.join(args.outbasepath, args.modelname,
+                                       "final.npz"), "efficientdet")
+
+    def stats(node):
+        if "variance" in node and not isinstance(node["variance"], dict):
+            yield node["mean"], node["variance"]
+        for v in node.values():
+            if isinstance(v, dict):
+                yield from stats(v)
+    at_init = sum(bool(np.all(m == 0) or np.all(v == 1))
+                  for m, v in stats(final))
+    if len(list(stats(final))) != n_bn or at_init:
+        raise AssertionError(f"final.npz: {at_init} of {n_bn} BN sites keep "
+                             f"the init's statistics")
+    out = {"steps": res["step"], "losses": losses, "wall_s": wall,
+           "launches": launches, "bn_sites": n_bn, "params": n_params}
+
+    # the step split by CUDA events, and the peak over those steps
+    trainer = res["trainer"]
+    tb = [torch.from_numpy(x).to(device) for x in batch[:4]]
+    split = {"forward+loss": [], "backward": [], "optimizer": []}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_TIMED + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        step_losses = trainer.losses(*tb)
+        ev[1].record()
+        trainer.backward(step_losses)
+        ev[2].record()
+        trainer.apply_gradients()
+        ev[3].record()
+        ev[3].synchronize()
+        if 0 < i:
+            for k, (e0, e1) in zip(split, zip(ev, ev[1:])):
+                split[k].append(e0.elapsed_time(e1))
+    vals = {k: v.item() for k, v in step_losses.items()}
+    if not all(math.isfinite(v) for v in vals.values()) or \
+            not vals["num_pos_anchors"] > 0:
+        raise AssertionError(f"step losses {vals}")
+    out["step_ms"] = {k: sorted(v)[len(v) // 2] for k, v in split.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["step_losses"] = vals
+    log("effdet-train", f"one {cfg.compute_dtype} step at B={b}, median of "
+        f"{TRAIN_TIMED} (CUDA events): " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in out["step_ms"].items())
+        + f"; {sum(out['step_ms'].values()):.2f} ms in all; peak device "
+        f"memory {out['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated"
+        f"); losses {vals}")
+    out["profile"] = train_step_profile(trainer, tb, "effdet-train")
+
+    # calibrate_bn on the batch, from the init's statistics: every site
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBN):
+                m.mean.zero_()
+                m.variance.fill_(1.0)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        if model.calibrate_bn([tb[0]]) is not model:
+            raise AssertionError("calibrate_bn did not return the model")
+    line = printed.getvalue().strip()
+    unmoved = [n for n, m in model.named_modules()
+               if isinstance(m, FrozenBN) and bool(torch.all(m.variance == 1))]
+    if line != f"calibrated {n_bn} BN sites over 1 batches" or unmoved:
+        raise AssertionError(f"calibrate_bn: {line!r}; variance still 1 at "
+                             f"{unmoved[:5]}")
+    log("effdet-train", f"calibrate_bn on the batch: {line!r}; every "
+        f"site's variance moved off 1")
+
+    # a bf16 inference forward with the calibrated weights
+    model.eval()
+    with torch.inference_mode():
+        det = model(tb[0])
+    torch.cuda.synchronize()
+    r = cfg.result_per_im
+    for k, shape in (("final_boxes", (b, r, 4)), ("final_probs", (b, r)),
+                     ("pooled_box_feat", (b, r, model.fpn_filters))):
+        if tuple(det[k].shape) != shape or not torch.isfinite(det[k]).all():
+            raise AssertionError(f"calibrated forward {k}: "
+                                 f"{tuple(det[k].shape)}, want {shape}, "
+                                 f"finite")
+    out["calibrated_detections"] = int(det["final_valid"].sum())
+    log("effdet-train", f"{cfg.compute_dtype} inference forward with the "
+        f"calibrated weights: outputs finite, {out['calibrated_detections']} valid "
+        f"detections over {b} images at score > {cfg.result_score_thres}")
+    out["targets"] = effdet_targets_check(model, batch)
+    tree = params_to_jax(model)
+    del trainer, model, res, tb, det
+    torch.cuda.empty_cache()
+    out["f32"] = effdet_f32_check(cfg, tree, batch)
+    return out
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1954,6 +2336,9 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         effdet = phase_effdet(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        effdet_train = phase_effdet_train(tmp)
 
     roi = actev["check"]["roi"]
     four = {k: v for k, v in kres.items() if k[0] in (1000, 100)}
@@ -2056,6 +2441,7 @@ def main():
         "actev_path": {k: v for k, v in actev.items() if k != "check"},
         "actev_profile": prof,
         "train": {k: v for k, v in train.items() if k not in ("roi", "bwd")},
+        "effdet_train": effdet_train,
         "card": card}
     print(json.dumps(kernels))
     print(card)

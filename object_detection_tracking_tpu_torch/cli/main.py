@@ -1,10 +1,13 @@
 """Detector training entry point (port of object_detection_tracking_tpu/cli/
 main.py:25-404, its ``train`` mode).
 
-  train:   the Faster/Mask R-CNN train step on one device with the JAX
-           CLI's schedule and optimizer, periodic eval with best-checkpoint
-           keeping; checkpoints with torch.save (params, optimizer state,
-           step), so a resume continues momentum and the LR schedule.
+  train:   the Faster/Mask R-CNN or EfficientDet train step on one device
+           with the JAX CLI's schedule and optimizer, periodic eval with
+           best-checkpoint keeping; checkpoints with torch.save (params,
+           optimizer state, step), so a resume continues momentum and the
+           LR schedule. An EfficientDet's BN statistics are calibrated
+           after the last step (``EfficientDet.calibrate_bn``), before the
+           final checkpoint.
 
 The same flags as the JAX CLI, plus ``--device`` (default cuda; with no GPU
 it raises unless ``--device cpu`` is given). ``--compute_dtype`` defaults to
@@ -17,7 +20,10 @@ The ``test``, ``forward`` and ``pack`` modes are not ported (ROADMAP A12).
 
 ``train`` is the loop alone: it takes any dataset with
 ``DetectionTrainDataset``'s ``batches(epochs)`` interface, so a caller
-without cv2 or files can feed batches from memory.
+without cv2 or files can feed batches from memory. As in the JAX CLI, no
+flag selects EfficientDet: build its config (``model="efficientdet"``,
+``efficientdet_name``, an ``efficientdet_image_size`` that is a multiple
+of 128), its model with ``build_model``, and call ``train``.
 
 Example:
   python -m object_detection_tracking_tpu_torch.cli.main train \\
@@ -194,14 +200,22 @@ def build_config(args, is_train: bool, device: torch.device
 
 
 def build(args, is_train: bool, device: torch.device):
-    """(config, model on ``device``) for the flags: random params from
-    seed 0, with ``--load_from``'s native ``.npz`` laid over them."""
+    """(config, model on ``device``) for the flags (``build_model``)."""
     cfg = build_config(args, is_train, device)
-    model = get_model(cfg)
-    tree = init_params(cfg, seed=0)
+    return cfg, build_model(args, cfg, device)
+
+
+def build_model(args, cfg, device: torch.device):
+    """The model ``cfg.model`` names, on ``device``: random params from
+    seed 0, with ``--load_from``'s native ``.npz`` laid over them. The
+    flags build a Faster/Mask R-CNN config; EfficientDet is trained from a
+    config with ``model="efficientdet"``, as the JAX package's quality
+    proof does, through ``build_model`` and ``train``."""
+    tree = init_params(cfg, seed=0, model_name=cfg.model)
     if args.load_from:
-        _overlay(tree, load_npz_tree(args.load_from), args.ignore_vars)
-    return cfg, params_from_jax(tree, model).to(device)
+        _overlay(tree, load_npz_tree(args.load_from, cfg.model),
+                 args.ignore_vars)
+    return params_from_jax(tree, get_model(cfg)).to(device)
 
 
 def _overlay(tree, loaded, ignore_vars):
@@ -330,7 +344,9 @@ def run_eval(args, cfg, model, cache=None) -> float:
 def train(args, cfg, model, ds, log_every: int = 100):
     """The training loop over ``ds.batches(args.num_epochs)``: resume from
     the latest checkpoint under ``checkpoint_dir(args)``, periodic
-    checkpoints and evals, a final checkpoint and ``final.npz``. Each step's
+    checkpoints and evals, the BN calibration of a model that has
+    ``calibrate_bn`` (EfficientDet), a final checkpoint and ``final.npz``.
+    Each step's
     random subsamples come from a generator on the model's device seeded
     with the step number, so a resumed run draws what an uninterrupted one
     does. Returns {"losses": total loss per step run, "step", "best_ap",
@@ -388,6 +404,11 @@ def train(args, cfg, model, ds, log_every: int = 100):
             if ap > best_ap:
                 best_ap = ap
                 save_ckpt(checkpoint_dir(args, best=True), trainer, step)
+    if hasattr(model, "calibrate_bn"):
+        # EfficientDet trains with batch-statistics BN: write the
+        # precise-BN population statistics before the final checkpoint
+        # and final.npz, so that both serve inference
+        model.calibrate_bn(b[0] for b in ds.batches(1))
     save_ckpt(checkpoint_dir(args), trainer, step)
     save_npz_tree(os.path.join(args.outbasepath, args.modelname,
                                "final.npz"), params_to_jax(model))

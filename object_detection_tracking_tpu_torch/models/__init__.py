@@ -10,12 +10,9 @@ from .faster_rcnn import FasterRCNNFPN  # noqa: F401
 def get_model(config, model_name: str = None):
     if model_name is None:
         model_name = getattr(config, "model", "faster_rcnn")
-    if model_name == "faster_rcnn":
+    if model_name in ("faster_rcnn", "mask_rcnn"):
         return FasterRCNNFPN(config)
     if model_name == "efficientdet":
         from .efficientdet import EfficientDet
         return EfficientDet(config)
-    if model_name == "mask_rcnn":
-        raise NotImplementedError(
-            "mask_rcnn is not ported yet (ROADMAP A8)")
     raise ValueError(f"unknown model {model_name!r}")

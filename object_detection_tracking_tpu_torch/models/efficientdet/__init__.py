@@ -5,4 +5,5 @@ top-k, decode, per-class exact NMS -> level-indexed ROIAlign tracking
 features."""
 
 from .efficientdet import EfficientDet, EFFICIENTDET_CONFIGS  # noqa: F401
-from .anchors import effdet_anchors, decode_effdet_boxes  # noqa: F401
+from .anchors import (decode_effdet_boxes, effdet_anchors,  # noqa: F401
+                      encode_effdet_boxes)

@@ -1,4 +1,4 @@
-"""EfficientDet anchors and box decode (port of
+"""EfficientDet anchors, box encode and decode (port of
 object_detection_tracking_tpu/models/efficientdet/anchors.py).
 
 Per level L in [min_level, max_level]: 3 octave scales 2^(i/3), aspects
@@ -65,3 +65,24 @@ def decode_effdet_boxes(deltas: torch.Tensor,
     return torch.stack([cx - w / 2.0, cy - h / 2.0,
                         cx + w / 2.0, cy + h / 2.0], dim=-1)
 
+
+def encode_effdet_boxes(boxes: torch.Tensor,
+                        anchors: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``decode_effdet_boxes``: x1y1x2y2 boxes -> (ty, tx, th,
+    tw) against the anchors, w and h floored at 1e-6 (automl's
+    FasterRcnnBoxCoder in EfficientDet's y-first order). The logs are taken
+    in float64 and rounded to float32, so that CUDA and the CPU give the
+    same bits (their float32 logs may differ by an ulp)."""
+    acx = (anchors[..., 0] + anchors[..., 2]) / 2.0
+    acy = (anchors[..., 1] + anchors[..., 3]) / 2.0
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    cx = (boxes[..., 0] + boxes[..., 2]) / 2.0
+    cy = (boxes[..., 1] + boxes[..., 3]) / 2.0
+    w = (boxes[..., 2] - boxes[..., 0]).clamp_min(1e-6)
+    h = (boxes[..., 3] - boxes[..., 1]).clamp_min(1e-6)
+
+    def log(t):
+        return torch.log(t.double()).to(t.dtype)
+    return torch.stack([(cy - acy) / ah, (cx - acx) / aw,
+                        log(h / ah), log(w / aw)], dim=-1)

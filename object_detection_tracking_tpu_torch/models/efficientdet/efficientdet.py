@@ -1,6 +1,7 @@
-"""EfficientDet, the inference forward: backbone -> BiFPN -> heads ->
-postprocess -> level-indexed ROIAlign (port of
-object_detection_tracking_tpu/models/efficientdet/efficientdet.py:27-368).
+"""EfficientDet: the inference forward (backbone -> BiFPN -> heads ->
+postprocess -> level-indexed ROIAlign), the training losses and the
+precise-BN calibration (port of
+object_detection_tracking_tpu/models/efficientdet/efficientdet.py:27-487).
 
 The same output contract as FasterRCNNFPN (without ``fpn_box_feat``):
 sigmoid class scores, a global top-k over all anchors, decode, per-class
@@ -22,6 +23,12 @@ loses samples of elongated boxes outside its 40x48 window when the levels
 are explicit (roi_align_pallas.py:475-495); both port versions keep the
 exact semantics (ROADMAP C2).
 
+Training (``forward_train``) runs the trunk with batch-statistics BN
+(``batch_bn``), labels the anchors with ``effdet_anchor_targets`` and
+takes automl's losses; it runs no ROIAlign. After training,
+``calibrate_bn`` writes each BN site's averaged batch statistics into its
+stored mean and variance, which inference then applies.
+
 Module names follow the JAX param tree (``backbone``, ``resample.p6``,
 ``fpn_cells.cell_{r}.fnode{n}`` with its ``dw``/``pw``/``bn``, the
 fast-attention ``wsm`` vector and the cell-0 ``resample_{i}_{o}_{m}``
@@ -41,8 +48,10 @@ from torch import nn
 from ...class_ids import coco_obj_class_to_id
 from ...ops.boxes import clip_boxes
 from ...ops.nms import nms, sort_desc_stable
-from ...ops.norm import FrozenBN, frozen_bn
+from ...ops.norm import FrozenBN, batch_bn, batch_stats, frozen_bn
 from ...ops.roi_align import multilevel_roi_align, multilevel_roi_align_cuda
+from ...train.losses import focal_loss, huber
+from ...train.targets import effdet_anchor_targets
 from ..faster_rcnn import FasterRCNNFPN, _gather_rows
 from ..layers import Conv, conv2d, max_pool, upsample2x_nearest
 from .anchors import decode_effdet_boxes, effdet_anchors
@@ -195,7 +204,7 @@ class EfficientDet(nn.Module):
                               self.num_classes * NUM_ANCHORS)
         self.box_net = Head(c, self.head_repeats, 4 * NUM_ANCHORS)
         self._anchors: Dict = {}
-        self.requires_grad_(False)
+        self.requires_grad_(bool(cfg.is_train))
 
     @property
     def device(self) -> torch.device:
@@ -386,3 +395,82 @@ class EfficientDet(nn.Module):
             "final_valid": fv,
             "pooled_box_feat": box_feat.mean(dim=(2, 3)),
         }
+
+    # ------------------------------------------------------------------
+
+    def forward_train(self, images, gt_boxes, gt_labels, gt_valid,
+                      gt_masks=None, generator=None, noise=None
+                      ) -> Dict[str, torch.Tensor]:
+        """Training losses (JAX efficientdet.py:382-425): automl's recipe,
+        focal loss (alpha 0.25, gamma 1.5) over sigmoid class logits and
+        huber (delta 0.1) over the fg anchors' box deltas, weighted 50,
+        with the trunk in batch-statistics BN. ``FasterRCNNFPN``'s
+        signature, so ``Trainer`` drives either model; the anchor labeling
+        draws nothing, so ``gt_masks``, ``generator`` and ``noise`` are
+        ignored. images [B, h, w, 3] BGR, gt_* [B, G, ...] padded with
+        ``gt_valid``."""
+        b = images.shape[0]
+        feats = self.features(images, bn=batch_bn)
+        cls_flat, box_flat = self.flat_heads(*self.heads(feats, bn=batch_bn))
+        anchors, _ = self._anchor_set()
+        cls_t, box_t, fg = effdet_anchor_targets(anchors, gt_boxes,
+                                                 gt_labels, gt_valid)
+        # one-hot without a background column: label 0 (background) gives
+        # the all-zero row, as JAX's one_hot(label - 1) does
+        classes = torch.arange(1, self.num_classes + 1, device=cls_t.device)
+        onehot = (cls_t[..., None] == classes).float()       # [B, N, C]
+        num_pos = fg.sum().float().clamp_min(1.0)
+        cls_loss = focal_loss(cls_flat, onehot, alpha=0.25,
+                              gamma=1.5).sum() / num_pos
+        box_err = huber(box_flat - box_t, delta=0.1)
+        box_loss = torch.where(fg[..., None], box_err,
+                               torch.zeros_like(box_err)).sum() \
+            / (num_pos * 4.0)
+        return {
+            "total_loss": cls_loss + 50.0 * box_loss,
+            "effdet_cls_loss": cls_loss,
+            "effdet_box_loss": box_loss,
+            "num_pos_anchors": num_pos / b,
+        }
+
+    @torch.no_grad()
+    def calibrate_bn(self, image_batches, max_batches: int = 16
+                     ) -> "EfficientDet":
+        """Precise-BN recalibration (JAX efficientdet.py:427-487): run up
+        to ``max_batches`` image batches (uint8 [B, h, w, 3], numpy or
+        torch) through the trunk and heads with batch-statistics BN,
+        average each BN site's batch mean and variance (``batch_stats``,
+        summed in float64 on the host) and write them as float32 into its
+        ``FrozenBN``'s ``mean`` and ``variance``, which inference applies.
+        The ``FrozenBN`` module is the site's key, so one pass finds the
+        sites. Returns the model."""
+        sums: Dict[FrozenBN, list] = {}
+        n = 0
+        for images in image_batches:
+            sites, stats = [], []
+
+            def bn(p, x):
+                mu, var = batch_stats(x)
+                sites.append(p)
+                stats.extend((mu, var))
+                return batch_bn(p, x)
+
+            if not isinstance(images, torch.Tensor):
+                images = torch.from_numpy(np.ascontiguousarray(images))
+            self.heads(self.features(images.to(self.device), bn=bn), bn=bn)
+            flat = torch.cat(stats).double().cpu()   # one copy to the host
+            off = 0
+            for p in sites:
+                c = p.mean.numel()
+                acc = sums.setdefault(p, [0.0, 0.0])
+                acc[0] = acc[0] + flat[off:off + c]
+                acc[1] = acc[1] + flat[off + c:off + 2 * c]
+                off += 2 * c
+            n += 1
+            if n == max_batches:
+                break
+        for p, (sum_mu, sum_var) in sums.items():
+            p.mean.copy_((sum_mu / n).float())
+            p.variance.copy_((sum_var / n).float())
+        print(f"calibrated {len(sums)} BN sites over {n} batches")
+        return self

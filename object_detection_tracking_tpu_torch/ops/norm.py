@@ -1,4 +1,5 @@
-"""Frozen BatchNorm (port of object_detection_tracking_tpu/ops/norm.py:26-38).
+"""Frozen and batch-statistics BatchNorm (port of
+object_detection_tracking_tpu/ops/norm.py:26-63).
 
 Stored EMA statistics applied with eps=1e-5 (reference nn.py:1722-1792).
 The affine folds into one scale/offset pair computed in f32 from the f32
@@ -11,6 +12,10 @@ updates (JAX ops/norm.py:26-34 has no stop_gradient). They are therefore
 ``nn.Parameter``s here, created with ``requires_grad=False``: a model built
 for training (``FasterRCNNFPN`` with ``is_train``) turns gradients on for
 every parameter.
+
+``batch_bn`` is the training-mode BN that EfficientDet trains with (JAX
+ops/norm.py:41-63): the current batch's statistics in place of the stored
+ones, differentiated through.
 """
 
 from __future__ import annotations
@@ -43,3 +48,25 @@ def frozen_bn(bn: FrozenBN, x: torch.Tensor) -> torch.Tensor:
 
 def bn_relu(bn: FrozenBN, x: torch.Tensor) -> torch.Tensor:
     return torch.relu(frozen_bn(bn, x))
+
+
+def batch_stats(x: torch.Tensor):
+    """Per-channel float32 (mean, variance) of ``x`` over every dim but 1,
+    as JAX computes them: E[x^2] - mean^2, not a two-pass variance."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    xf = x.float()
+    mu = xf.mean(dims)
+    return mu, xf.square().mean(dims) - mu.square()
+
+
+def batch_bn(bn: FrozenBN, x: torch.Tensor) -> torch.Tensor:
+    """Training-mode BN: normalise with the batch's own statistics
+    (``batch_stats``), then gamma/beta. The scale and offset fold in f32
+    and apply in ``x``'s dtype, as ``frozen_bn``'s do; the gradient flows
+    through the statistics. ``bn``'s stored mean and variance are not
+    read (``EfficientDet.calibrate_bn`` writes them after training)."""
+    mu, var = batch_stats(x)
+    scale = bn.gamma / torch.sqrt(var + BN_EPS)
+    offset = bn.beta - mu * scale
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return x * scale.to(x.dtype).view(shape) + offset.to(x.dtype).view(shape)

@@ -109,9 +109,12 @@ def params_to_jax(model: nn.Module) -> Tree:
     return tree
 
 
-# the roots of the native trees: Faster/Mask R-CNN, EfficientDet
+# the roots of the native trees by model name: Faster/Mask R-CNN (one
+# model class), EfficientDet
+_RCNN_ROOTS = ("resnet/", "fpn/", "rpn/", "fastrcnn/", "maskrcnn/")
 _NATIVE_ROOTS = {
-    "faster_rcnn": ("resnet/", "fpn/", "rpn/", "fastrcnn/", "maskrcnn/"),
+    "faster_rcnn": _RCNN_ROOTS,
+    "mask_rcnn": _RCNN_ROOTS,
     "efficientdet": ("backbone/", "resample/", "fpn_cells/", "class_net/",
                      "box_net/"),
 }

@@ -1,5 +1,5 @@
 """Training-target assignment on the device, static shapes, batched over
-images (port of object_detection_tracking_tpu/train/targets.py:34-151).
+images (port of object_detection_tracking_tpu/train/targets.py:34-187).
 
 Rules preserved (reference models.py:3380-3486, nn.py:1119-1176):
   * anchors outside the (unpadded) image are ignored;
@@ -16,6 +16,9 @@ function takes them as tensors (``u_fg``, ``u_bg``), or draws them from a
 which torch cannot reproduce, so the tests rebuild JAX's draws and pass
 them in. Ties sort as JAX's do: the stable ``argsort`` and ``lax.top_k``
 put the lower index first, and so do the stable sorts here.
+
+``effdet_anchor_targets`` is EfficientDet's AnchorLabeler: no sampling, so
+no draws.
 """
 
 from __future__ import annotations
@@ -176,3 +179,48 @@ def sample_fastrcnn_targets(proposals: torch.Tensor, prop_valid: torch.Tensor,
         "fg_gt_boxes": fg_gt_boxes,
         "fg_gt_idx": torch.where(sel_fg, sel_gt, 0).to(torch.int32),
     }
+
+
+def effdet_anchor_targets(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                          gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                          match_threshold: float = 0.5):
+    """EfficientDet's AnchorLabeler (automl efficientdet/anchors.py:540):
+    an ArgMax matcher whose match and unmatched thresholds are equal (no
+    ignore band), with force_match_for_each_row: every valid gt claims its
+    best anchor even below the threshold.
+
+    anchors [N, 4] x1y1x2y2; gt_boxes [B, G, 4], gt_labels [B, G],
+    gt_valid [B, G] (padded rows arbitrary). Returns (cls_targets [B, N]
+    int32, 0 = background, else the gt label; box_targets [B, N, 4] (ty,
+    tx, th, tw), zero off fg; fg [B, N] bool).
+
+    JAX's force match is ``forced.at[best_anchor_per_gt].set(...)``, one
+    write per gt row, an invalid row writing -1 (its IoU column is all -1,
+    so its best anchor is anchor 0). Several rows can name one anchor, and
+    JAX's scatter keeps the last row's write. Here that rule is explicit:
+    per anchor the highest gt row that names it (``scatter_reduce`` amax)
+    decides, invalid rows included, so CUDA gives the same answer as the
+    CPU. Every argmax takes the first index on ties, as JAX's does."""
+    from ..models.efficientdet.anchors import encode_effdet_boxes
+
+    b, g = gt_valid.shape
+    n = anchors.shape[0]
+    iou = pairwise_iou(anchors, gt_boxes)                 # [B, N, G]
+    iou = torch.where(gt_valid[:, None, :], iou, torch.full_like(iou, -1.0))
+    iou_max, iou_argmax = iou.max(dim=2)                  # [B, N]
+
+    best_anchor = iou.argmax(dim=1)                       # [B, G]
+    rows = torch.arange(g, device=iou.device).expand(b, g)
+    writer = torch.full((b, n), -1, dtype=torch.long, device=iou.device)
+    writer = writer.scatter_reduce(1, best_anchor, rows, "amax")
+    writer_valid = torch.gather(gt_valid, 1, writer.clamp_min(0))
+    forced = writer_valid & (writer >= 0)
+    matched = torch.where(forced, writer, iou_argmax)
+    fg = forced | (iou_max >= match_threshold)
+
+    labels = torch.gather(gt_labels.long(), 1, matched)
+    cls_targets = torch.where(fg, labels, 0).to(torch.int32)
+    gt_rows = torch.gather(gt_boxes, 1, matched[..., None].expand(b, n, 4))
+    enc = encode_effdet_boxes(gt_rows, anchors)
+    box_targets = torch.where(fg[..., None], enc, torch.zeros_like(enc))
+    return cls_targets, box_targets, fg

@@ -126,8 +126,10 @@ def test_no_source_imports_or_reads_the_jax_package():
 
 
 def test_training_runs_with_jax_and_the_jax_package_blocked():
-    """The train CLI imports, and a small CPU forward_train and backward
-    run, with nothing of JAX importable."""
+    """The train CLI imports, and small CPU forward_train and backward
+    passes of Faster R-CNN (with masks) and EfficientDet run, and an
+    EfficientDet's BN statistics calibrate, with nothing of JAX
+    importable."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -157,6 +159,20 @@ def test_training_runs_with_jax_and_the_jax_package_blocked():
         "losses['total_loss'].backward()\n"
         "assert torch.isfinite(losses['total_loss']), losses\n"
         "assert m.maskrcnn.fcn0.weight.grad.abs().sum() > 0\n"
+        "cfg = DetectorConfig(model='efficientdet', efficientdet_name="
+        "'efficientdet-test', num_class=4, compute_dtype='float32', "
+        "is_train=True)\n"
+        "e = params_from_jax(init_params(cfg, 0, 'efficientdet'), "
+        "get_model(cfg))\n"
+        "img = torch.from_numpy(rng.randint(0, 255, (2, 128, 128, 3))"
+        ".astype(np.uint8))\n"
+        "losses = e.forward_train(img, gt, torch.ones(2, 1, dtype=torch.int32),"
+        " torch.ones(2, 1, dtype=torch.bool))\n"
+        "losses['total_loss'].backward()\n"
+        "assert torch.isfinite(losses['total_loss']), losses\n"
+        "assert e.class_net.predict.pw.weight.grad.abs().sum() > 0\n"
+        "e.calibrate_bn([img.numpy()])\n"
+        "assert not torch.all(e.backbone.stem.bn.variance == 1)\n"
         f"bad = [k for k, v in sys.modules.items() if v is not None and "
         f"(k == 'jax' or k.startswith('jax.') or k == '{JAX_PKG}' or "
         f"k.startswith('{JAX_PKG}.'))]\n"
@@ -165,6 +181,39 @@ def test_training_runs_with_jax_and_the_jax_package_blocked():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_trainer_decays_the_leaves_of_the_jax_rule_on_efficientdet():
+    """The Trainer's decay set on the EfficientDet tree is JAX's mask
+    (train/trainer.py:59-63: every leaf with a "W" key in its path), and
+    every trainable parameter is a leaf of the tree (fusion weights and
+    BN statistics included)."""
+    from object_detection_tracking_tpu_torch.models import get_model
+    from object_detection_tracking_tpu_torch.params import (_leaves,
+                                                            params_to_jax)
+    from object_detection_tracking_tpu_torch.train import Trainer
+    cfg = tconfig.DetectorConfig(model="efficientdet",
+                                 efficientdet_name="efficientdet-test",
+                                 num_class=4, is_train=True)
+    model = get_model(cfg)
+    trainer = Trainer(model, tconfig.TrainConfig(wd=1e-4))
+
+    def paths(node, prefix=()):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from paths(v, prefix + (k,))
+            else:
+                yield prefix + (k,)
+    tree_paths = list(paths(params_to_jax(model)))
+    want = {"/".join(p) for p in tree_paths if "W" in p}
+    assert trainer.opt.decay == want
+    assert set(trainer.opt.params) == {"/".join(p) for p in tree_paths}
+    assert len(want) > 100 and any(p[-1] == "wsm" for p in tree_paths)
+    groups = trainer.opt.torch_opt.param_groups
+    assert sum(len(g["params"]) for g in groups) == len(list(_leaves(model)))
+    assert [g["weight_decay"] for g in groups] == [1e-4, 0.0]
+    assert {id(p) for p in groups[0]["params"]} == {
+        id(trainer.opt.params[n]) for n in want}
 
 
 def _properties(cls):
