@@ -102,11 +102,28 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                padded rows; one f32 step at B=2 on the card against the
                same step on this machine's CPU (losses, every gradient
                leaf)
+ 12. quality   the port's detector quality proof (cli/quality_proof.py) in
+               this process, at the JAX proof's widths and settings (160 px
+               synthetic scenes rendered in memory with numpy, B=8, f32
+               with TF32 off) with the steps and scenes cut and the gates
+               at 0 (the gates belong to the committed artifacts): R18-FPN
+               Mask R-CNN in hard mode, then EfficientDet-d0; every loss
+               finite and the loss falling; B1 and B1b launched twice a
+               step in R18 training and B1 three times an image in its
+               eval (AP and mask IOU); B1 and B1b held against their plain
+               versions on an R18 proof step's own inputs (B=8, f32, box
+               head N=512 P=7, mask head fg rows P=14); no kernel launched
+               in d0 training;
+               AP and mask IOU finite; all of it with cv2 blocked (its
+               import fails, the port's modules hold None); the median step
+               ms, the wall time, and each committed TORCH_QUALITY_*.json's
+               freshness (its tree_hash against the tree's)
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -172,6 +189,14 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
 # card-vs-CPU step's batch
 EFFDET_TRAIN, EFFDET_TRAIN_SIZE = "efficientdet-d0", 512
 EFFDET_TRAIN_BATCH, EFFDET_TRAIN_STEPS, EFFDET_F32_BATCH = 8, 8, 2
+# quality phase (12): the proof's flags, with scenes and steps cut
+QUALITY_RUNS = (
+    ("r18-mask", ["--hard", "--add_mask", "--train_images", "64",
+                  "--val_images", "16", "--steps", "150"]),
+    ("d0", ["--detector", "efficientdet-d0", "--train_images", "64",
+            "--val_images", "16", "--steps", "60"]))
+QUALITY_ARTIFACTS = ("TORCH_QUALITY_R18.json", "TORCH_QUALITY_MASK.json",
+                     "TORCH_QUALITY_EFFDET.json")
 # gradient leaves that vanish in exact arithmetic: batch-statistics BN
 # removes any per-channel constant added before it, so the bias of a conv
 # that feeds a BN and the beta of each MBConv's project BN (its map
@@ -1771,13 +1796,15 @@ def roi_backward_inputs(loss):
     return captured
 
 
-def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
+def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels,
+                       phase="train"):
     """B1b on one training launch's own inputs against autograd of the
     plain version (multilevel_roi_align_vjp). bf16 features, as on the
-    path: within one bf16 step of each value plus B1B_REL of the level's
-    largest magnitude (both round float32 sums that differ only in their
-    order); the same launch with the features in float32: within B1B_REL
-    of the level's largest magnitude. Two launches agree bit for bit (each
+    bf16 path: within one bf16 step of each value plus B1B_REL of the
+    level's largest magnitude (both round float32 sums that differ only in
+    their order); the same launch with the features in float32 (the f32
+    path's own): within B1B_REL of the level's largest magnitude. Two
+    launches agree bit for bit (each
     element has one writer, adding in a fixed order). One call allocates
     nothing beyond its gradients and a small scratch, and its profile holds
     the plan and tile kernels alone, each with time. Times: the
@@ -1794,7 +1821,10 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
         return RA.multilevel_roi_align_vjp(f, boxes, strides, pool, grad_out,
                                            levels)
     entry = {}
-    for name, fs in (("bf16", feats), ("f32", [f.float() for f in feats])):
+    runs = [("f32", [f.float() for f in feats])]
+    if feats[0].dtype == torch.bfloat16:
+        runs.insert(0, ("bf16", feats))
+    for name, fs in runs:
         got, ref = kernel(fs), plain(fs)
         err = share = 0.0
         for g, r in zip(got, ref):
@@ -1804,7 +1834,7 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
             tol = B1B_REL * scale + (2.0 ** -7 * r.abs()
                                      if fs[0].dtype == torch.bfloat16 else 0)
             if not (d <= tol).all():
-                raise AssertionError(f"train roi_align_backward {label} "
+                raise AssertionError(f"{phase} roi_align_backward {label} "
                                      f"{name}: max |kernel - plain| "
                                      f"{d.max().item()} over its bound")
             err = max(err, d.max().item())
@@ -1813,8 +1843,8 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
         again = kernel(fs)
         if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                    for a, b in zip(got, again)):
-            raise AssertionError(f"train roi_align_backward {label} {name}: "
-                                 f"two launches differ")
+            raise AssertionError(f"{phase} roi_align_backward {label} "
+                                 f"{name}: two launches differ")
         del got, ref, again
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1827,7 +1857,7 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
     # the gradients; the scratch (16 bytes per ROI, 4 per tile) and the
     # allocator's rounding fit in 2 MiB
     if entry["alloc_bytes"] > grad_bytes + 2 ** 21:
-        raise AssertionError(f"train roi_align_backward {label}: one call "
+        raise AssertionError(f"{phase} roi_align_backward {label}: one call "
                              f"allocated {entry['alloc_bytes']} bytes for "
                              f"{grad_bytes} bytes of gradients")
     entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
@@ -1836,7 +1866,7 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
                              "tiles": "roi_align_bwd_tile"}, runs=15,
                     others=others)
     if others or not all(v > 0 for v in dev.values()):
-        raise AssertionError(f"train roi_align_backward {label}: profile "
+        raise AssertionError(f"{phase} roi_align_backward {label}: profile "
                              f"{dev}, other device work {sorted(set(others))}")
     entry["device_ms"] = sum(dev.values())
     entry["device_by_part"] = dev
@@ -1844,9 +1874,11 @@ def check_roi_backward(label, feats, boxes, strides, pool, grad_out, levels):
     entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
     entry["design_bytes_ms"] = roi_bwd_design_ms(feats, boxes, strides, pool,
                                                  levels)
-    log("train", f"roi_align_backward on the step's own inputs, {label}: max "
-        f"|kernel - plain| {entry['err_bf16']:.3g} bf16 (bound: one bf16 "
-        f"step + {B1B_REL} x max |plain|), {entry['err_f32']:.3g} f32 "
+    bf16 = ("" if "err_bf16" not in entry else
+            f"{entry['err_bf16']:.3g} bf16 (bound: one bf16 step + "
+            f"{B1B_REL} x max |plain|), ")
+    log(phase, f"roi_align_backward on the step's own inputs, {label}: max "
+        f"|kernel - plain| {bf16}{entry['err_f32']:.3g} f32 "
         f"({entry['share_f32']:.3g} of max |plain|, bound {B1B_REL}); two "
         f"launches bitwise equal; one call allocates "
         f"{entry['alloc_bytes']} bytes ({grad_bytes} of gradients); "
@@ -2230,6 +2262,195 @@ def phase_effdet_train(tmp):
     return out
 
 
+@contextlib.contextmanager
+def cv2_blocked():
+    """``import cv2`` fails, and every module of the port that bound cv2
+    holds None instead, until the block ends: code that reaches cv2 raises.
+    Yields whether this machine has cv2 at all."""
+    import importlib.util
+    present = importlib.util.find_spec("cv2") is not None
+    saved = sys.modules.get("cv2")
+    bound = [(m, m.cv2) for name, m in list(sys.modules.items())
+             if name.startswith("object_detection_tracking_tpu_torch")
+             and getattr(m, "cv2", None) is not None]
+    sys.modules["cv2"] = None
+    for m, _ in bound:
+        m.cv2 = None
+    try:
+        yield present
+    finally:
+        for m, cv2 in bound:
+            m.cv2 = cv2
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+
+
+def quality_step_check(trainer, ds):
+    """B1 and B1b on one R18 proof step's own inputs, against their plain
+    versions: the proof's first batch (B=8, f32) through the trained
+    model, the box head's N=512 at P=7 and the mask head's fg rows at
+    P=14, read off the step's autograd graph (roi_backward_inputs).
+    Returns ({label: B1 entry}, {label: B1b entry})."""
+    import numpy as np
+    import torch
+    device = trainer.model.device
+    batch = next(iter(ds.batches(1)))
+    tb = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+          for x in batch[:5]]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    captured = roi_backward_inputs(
+        trainer.losses(*tb, generator=gen)["total_loss"])
+    if sorted(captured) != [7, 14]:
+        raise AssertionError(f"a proof step pooled at {sorted(captured)}, "
+                             f"want the box head's 7 and the mask head's 14")
+    roi, bwd = {}, {}
+    for pool in sorted(captured):
+        feats, boxes, strides, grad_out, levels = captured[pool]
+        label = (f"B={boxes.shape[0]} N={boxes.shape[1]} P={pool} "
+                 f"{str(feats[0].dtype)[6:]}")
+        roi[label] = check_roi_launch("quality", label, feats, strides,
+                                      boxes, None, pool, True)
+        bwd[label] = check_roi_backward(label, feats, boxes, strides, pool,
+                                        grad_out, levels, phase="quality")
+    return roi, bwd
+
+
+def quality_run(tmp, name, flags, counters):
+    """One cut run of the quality proof through ``quality_proof.run``, its
+    checks and its summary; for R18, B1 and B1b held against their plain
+    versions on a proof step's own inputs (quality_step_check)."""
+    import io
+    import numpy as np
+    from object_detection_tracking_tpu_torch.cli import main as driver
+    from object_detection_tracking_tpu_torch.cli import quality_proof as Q
+
+    args = Q.get_args(flags + ["--workdir", os.path.join(tmp, name),
+                               "--min_ap", "0", "--min_mask_iou", "0"])
+    for fn in counters:
+        fn.launches = 0
+    # keep the proof's trainer and train set for the kernel check
+    trained, real_train = {}, driver.train
+
+    def train(train_args, cfg, model, ds, *rest, **kw):
+        res = real_train(train_args, cfg, model, ds, *rest, **kw)
+        trained.update(trainer=res["trainer"], ds=ds)
+        return res
+    printed = io.StringIO()
+    driver.train = train
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            art, losses = Q.run(args)
+    finally:
+        driver.train = real_train
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    steps = art["trained_steps"]
+    per = art["kernel_launches"]
+    log("quality", f"{name}: {art['model']}, {steps} steps at B="
+        f"{args.batch_size}, {art['image_size']} px, "
+        f"{art['compute_dtype']} (TF32 off), {art['train_images']}+"
+        f"{art['val_images']} scenes: AP@0.5 {art['ap50']}"
+        + ("" if art["mask_iou"] is None else
+           f", mask IOU {art['mask_iou']}")
+        + f"; step {art['step_ms_median']} ms (median), {wall:.1f} s "
+        f"wall; loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
+        f"first 10 {art['train_loss']['first10']}, last 10 "
+        f"{art['train_loss']['last10']}); launches: train {per['train']}"
+        f", eval {per['eval']}")
+    for line in printed.getvalue().splitlines():
+        if line.startswith(("eval", "mean", "step ")):
+            log("quality", f"  {name}: {line}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: {steps} steps, losses {losses}")
+    third = max(1, len(losses) // 3)
+    if not np.mean(losses[-third:]) < np.mean(losses[:third]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    if not math.isfinite(art["ap50"]) or (
+            art["mask_iou"] is not None
+            and not math.isfinite(art["mask_iou"])):
+        raise AssertionError(f"{name}: AP {art['ap50']}, mask IOU "
+                             f"{art['mask_iou']}")
+    train = per["train"]
+    if name == "r18-mask":
+        want_train = {"multilevel_roi_align_cuda": 2 * steps,
+                      "multilevel_roi_align_backward_cuda": 2 * steps,
+                      "fused_bottleneck_stage_cuda": 0}
+        want_eval = 3 * args.val_images
+        got_eval = (per["eval"]["multilevel_roi_align_cuda"],
+                    per["eval"]["mask_iou"]["multilevel_roi_align_cuda"])
+        if got_eval != (want_eval, want_eval):
+            raise AssertionError(f"{name}: B1 launched {got_eval} times "
+                                 f"in eval, want {want_eval} each")
+    else:
+        want_train = {fn.__name__: 0 for fn in counters}
+    if train != want_train:
+        raise AssertionError(f"{name}: training launched {train}, want "
+                             f"{want_train}")
+    if launches["multilevel_roi_align_cuda"] != (
+            train["multilevel_roi_align_cuda"]
+            + per["eval"]["multilevel_roi_align_cuda"]
+            + per["eval"].get("mask_iou", {}).get(
+                "multilevel_roi_align_cuda", 0)):
+        raise AssertionError(f"{name}: {launches} launched in all, "
+                             f"the proof counted {per}")
+    out = {
+        "ap50": art["ap50"], "mask_iou": art["mask_iou"],
+        "steps": steps, "step_ms_median": art["step_ms_median"],
+        "wall_s": wall, "loss_first": losses[0],
+        "loss_last": losses[-1], "launches": per}
+    if name == "r18-mask":
+        out["roi"], out["bwd"] = quality_step_check(**trained)
+    return out
+
+
+def phase_quality(tmp):
+    """The port's quality proof, cut to a few steps, through its own entry
+    point with cv2 blocked, and each committed artifact's freshness (phase
+    12 of the module note). Returns a summary dict."""
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.utils.source_hash import \
+        quality_tree_hash
+
+    counters = (RA.multilevel_roi_align_cuda,
+                RA.multilevel_roi_align_backward_cuda,
+                RS.fused_bottleneck_stage_cuda)
+    log("quality", "gates at 0 here: the gates belong to the committed "
+        "TORCH_QUALITY_*.json artifacts")
+    with cv2_blocked() as cv2_present:
+        log("quality", f"cv2 {'installed' if cv2_present else 'absent'} on "
+            "this machine; blocked for the proof (its import fails, the "
+            "port's modules hold None for it)")
+        out = {name: quality_run(tmp, name, flags, counters)
+               for name, flags in QUALITY_RUNS}
+    log("quality", "both runs completed with cv2 blocked")
+    tree = quality_tree_hash()
+    root = os.path.dirname(os.path.abspath(__file__))
+    fresh = {}
+    for name in QUALITY_ARTIFACTS:
+        path = os.path.join(root, name)
+        if not os.path.exists(path):
+            fresh[name] = "missing"
+        else:
+            with open(path) as f:
+                art = json.load(f)
+            fresh[name] = ("fresh" if art["tree_hash"] == tree else
+                           f"stale (made at {art['tree_hash']})")
+            log("quality", f"{name}: AP@0.5 {art['ap50']}"
+                + ("" if art["mask_iou"] is None else
+                   f", mask IOU {art['mask_iou']}")
+                + f", passed {art['passed']}, {art['trained_steps']} steps "
+                f"on {art['device']}")
+        log("quality", f"{name}: {fresh[name]} against tree {tree}")
+    out["artifacts"] = fresh
+    out["tree_hash"] = tree
+    return out
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2339,12 +2560,16 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         effdet_train = phase_effdet_train(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        quality = phase_quality(tmp)
 
     roi = actev["check"]["roi"]
     four = {k: v for k, v in kres.items() if k[0] in (1000, 100)}
     err = max([r[0] for r in four.values()] + [main_res["roi_err"]]
               + [r["err"] for r in roi.values()]
-              + [r["err"] for r in train["roi"].values()])
+              + [r["err"] for r in train["roi"].values()]
+              + [r["err"] for r in quality["r18-mask"]["roi"].values()])
     bwd = train["bwd"]
     _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
     _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
@@ -2380,13 +2605,15 @@ def main():
                   "and bound_ms summed over them; train_launches: the "
                   "training phase's 8 steps (box head N=512 P=7, mask head "
                   "P=14, B=2), train_per_launch timed on a step's own "
-                  "inputs"},
+                  "inputs; max_abs_err also over the R18 quality proof "
+                  "step's launches (B=8, 160 px, f32; quality.r18-mask.roi)"},
         {"name": "roi_align_backward", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"
                      "roi_align_pallas.py:600",
          "launches": train["roi_align_backward_launches"],
-         "max_abs_err": max(r["err_f32"] for r in bwd.values()),
+         "max_abs_err": max(r["err_f32"] for r in list(bwd.values()) + list(
+             quality["r18-mask"]["bwd"].values())),
          "max_abs_err_bf16": max(r["err_bf16"] for r in bwd.values()),
          "ms": sum(r["ms"] for r in bwd.values()),
          "device_ms": sum(r["device_ms"] for r in bwd.values()),
@@ -2404,7 +2631,9 @@ def main():
                    "written once; design_bytes_ms: grad_out rows re-read by "
                    "each further output tile their taps reach, and the "
                    "plan's scratch, over the memory rate, the design's "
-                   "overhead against bound_ms"},
+                   "overhead against bound_ms; max_abs_err also over the "
+                   "R18 quality proof step's two launches (B=8, 160 px, "
+                   "f32; quality.r18-mask.bwd)"},
         {"name": "bottleneck_stage", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/"
                    "bottleneck_stage.cu",
@@ -2442,6 +2671,7 @@ def main():
         "actev_profile": prof,
         "train": {k: v for k, v in train.items() if k not in ("roi", "bwd")},
         "effdet_train": effdet_train,
+        "quality": quality,
         "card": card}
     print(json.dumps(kernels))
     print(card)

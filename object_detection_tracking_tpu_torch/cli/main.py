@@ -265,40 +265,53 @@ def load_ckpt(path, trainer: Trainer) -> int:
     return int(state["step"])
 
 
-def train_dataset(args, cfg):
-    from ..data.training import DetectionTrainDataset
-    ds = DetectionTrainDataset(
-        args.trainlst, args.framepath, args.annopath, cfg.classname2id,
-        cfg.short_edge_size, cfg.max_size, batch_size=args.im_batch_size,
-        max_gt=args.max_gt, flip_prob=args.flip_prob,
-        use_mixup=args.use_mixup, with_masks=cfg.add_mask,
+def train_dataset_kwargs(args, cfg) -> dict:
+    """The training dataset's options from the flags, beside the samples,
+    the class map and the sizes."""
+    return dict(
+        batch_size=args.im_batch_size, max_gt=args.max_gt,
+        flip_prob=args.flip_prob, use_mixup=args.use_mixup,
+        with_masks=cfg.add_mask,
         short_edge_jitter=((args.short_edge_size_min,
                             args.short_edge_size_max)
                            if args.scale_jitter else None),
         act_as_obj=args.act_as_obj, act_mapping=_act_mapping(args))
+
+
+def train_dataset(args, cfg):
+    from ..data.training import DetectionTrainDataset
+    ds = DetectionTrainDataset(
+        args.trainlst, args.framepath, args.annopath, cfg.classname2id,
+        cfg.short_edge_size, cfg.max_size,
+        **train_dataset_kwargs(args, cfg))
     if args.train_skip > 1:
         ds.samples = ds.samples[::args.train_skip]
         ds.num_samples = len(ds.samples)
     return ds
 
 
-def run_eval(args, cfg, model, cache=None) -> float:
+def run_eval(args, cfg, model, cache=None, dataset=None) -> float:
     """AP/AR of ``model``'s weights on the validation lst, through an
     inference model of the same config (``is_train=False``) on the same
     device, one image per batch (the JAX CLI's batch on one device).
-    ``cache`` keeps the inference model across periodic evals."""
+    ``cache`` keeps the inference model across periodic evals.
+    ``dataset`` replaces the lst's ``DetectionTrainDataset`` with any
+    dataset of its ``batches()`` interface, built as the eval needs (batch
+    size 1, no shuffle or flip)."""
     from ..data.training import DetectionTrainDataset
     from ..evaluation import (aggregate_eval, gather_dt, gather_gt,
                               match_dt_gt, weighted_average)
-    ds = DetectionTrainDataset(
-        args.vallst, args.valframepath or args.framepath,
-        args.valannopath or args.annopath, cfg.classname2id,
-        cfg.short_edge_size, cfg.max_size, batch_size=1,
-        max_gt=args.max_gt, shuffle=False, flip_prob=0.0,
-        act_as_obj=args.act_as_obj, act_mapping=_act_mapping(args))
-    if args.val_skip > 1:
-        ds.samples = ds.samples[::args.val_skip]
-        ds.num_samples = len(ds.samples)
+    ds = dataset
+    if ds is None:
+        ds = DetectionTrainDataset(
+            args.vallst, args.valframepath or args.framepath,
+            args.valannopath or args.annopath, cfg.classname2id,
+            cfg.short_edge_size, cfg.max_size, batch_size=1,
+            max_gt=args.max_gt, shuffle=False, flip_prob=0.0,
+            act_as_obj=args.act_as_obj, act_mapping=_act_mapping(args))
+        if args.val_skip > 1:
+            ds.samples = ds.samples[::args.val_skip]
+            ds.num_samples = len(ds.samples)
     if cache is None:
         cache = {}
     if "model" not in cache:

@@ -5,25 +5,66 @@ object_detection_tracking_tpu/utils/masks.py ``fill_full_mask``,
 
 The RLE codec follows pycocotools' maskApi.c format: column-major run
 lengths, delta-encoded from the second-previous count, 5-bit LEB128-style
-chars offset by 48. cv2 is imported if present: only ``fill_full_mask``
-needs it.
+chars offset by 48. Nothing here needs cv2: ``fill_full_mask`` resizes
+with numpy as ``cv2.resize`` does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
-try:
-    import cv2
-except ImportError:  # pragma: no cover
-    cv2 = None
+
+def _linear_taps(n_src: int, n_dst: int) -> Tuple[np.ndarray, np.ndarray]:
+    """cv2 INTER_LINEAR's source index and float32 weight of the next
+    source pixel for each output position along one axis: half-pixel
+    centres in float64, the weight rounded once to float32, 0 at a clamped
+    edge."""
+    f = (np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5
+    i = np.floor(f)
+    w = (f - i).astype(np.float32)
+    i = i.astype(np.int64)
+    edge = (i < 0) | (i >= n_src - 1)
+    w[edge] = 0
+    return np.clip(i, 0, n_src - 1), w
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add a * b + c, rounded once: the product is
+    exact in float64, and the sum's float64 rounding error (TwoSum) breaks
+    the ties a second rounding would get wrong."""
+    p = a.astype(np.float64) * b
+    c = c.astype(np.float64)
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.float32(np.inf),
+                                     np.float32(-np.inf)).astype(np.float32))
+    tie = (s == (r.astype(np.float64) + other) / 2) & (err != 0)
+    up, down = np.maximum(r, other), np.minimum(r, other)
+    return np.where(tie, np.where(err > 0, up, down), r)
+
+
+def resize_linear(src: np.ndarray, w: int, h: int) -> np.ndarray:
+    """``cv2.resize(src, (w, h))`` (INTER_LINEAR) of a 2-D float32 array,
+    bit for bit: the horizontal pass, then the vertical one, each output
+    ``s0 + (s1 - s0) * weight`` in one float32 fused multiply-add."""
+    src = np.asarray(src, np.float32)
+    sh, sw = src.shape
+    xi, xw = _linear_taps(sw, w)
+    yi, yw = _linear_taps(sh, h)
+    s0 = src[:, xi]
+    rows = _fma32(src[:, np.minimum(xi + 1, sw - 1)] - s0, xw, s0)
+    r0 = rows[yi]
+    return _fma32(rows[np.minimum(yi + 1, sh - 1)] - r0, yw[:, None], r0)
 
 
 def fill_full_mask(box_xyxy, mask: np.ndarray, im_hw) -> np.ndarray:
     """Paste an MxM soft mask into the full image (reference
-    nn.py:1565-1586): int-coordinate box, cv2 resize, 0.5 threshold."""
+    nn.py:1565-1586): int-coordinate box, bilinear resize, 0.5
+    threshold."""
     x0, y0 = int(box_xyxy[0] + 0.5), int(box_xyxy[1] + 0.5)
     x1, y1 = int(box_xyxy[2] - 0.5), int(box_xyxy[3] - 0.5)
     x1, y1 = max(x0, x1), max(y0, y1)
@@ -32,7 +73,7 @@ def fill_full_mask(box_xyxy, mask: np.ndarray, im_hw) -> np.ndarray:
     x1, y1 = min(x1, w_im - 1), min(y1, h_im - 1)
     w = x1 + 1 - x0
     h = y1 + 1 - y0
-    resized = cv2.resize(np.asarray(mask, np.float32), (w, h))
+    resized = resize_linear(mask, w, h)
     out = np.zeros((h_im, w_im), np.uint8)
     out[y0:y1 + 1, x0:x1 + 1] = (resized > 0.5).astype(np.uint8)
     return out
