@@ -118,6 +118,26 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                import fails, the port's modules hold None); the median step
                ms, the wall time, and each committed TORCH_QUALITY_*.json's
                freshness (its tree_hash against the tree's)
+ 13. tmot      the TMOT tracker (--tracker tmot) on phase 7's path: its
+               model (R101-FPN v4, 1920x1080, masks, fused backbone, bf16,
+               B=8) and video through process_video, run right after
+               phase 8 while the model is at hand; every frame processed, a
+               MOT file per tracked class, B1 and B2 launched 3 times a
+               batch; B1 and B2 redone on one forward's own inputs against
+               their plain versions; the caller's host ms a frame beside
+               Deep SORT's from phase 7
+ 14. track-quality  the port's tracking proof (cli/track_quality_proof.py)
+               in this process with cv2 blocked, for Deep SORT and then
+               TMOT in one workdir (the second reuses the first one's
+               detector): hard mode, 160 px, the video-domain R18 detector
+               cut to 50 steps (one epoch), a 24-frame video, gates at 0;
+               MOTA, IDF1 and MOTP finite; B1 and B1b launched once a step
+               in training, B1 twice an image in eval and twice a batch in
+               tracking, B2 never; B1 and B1b held against their plain
+               versions on a proof step's own inputs (B=8, f32, box head
+               N=512 P=7) and B1 on one tracking forward's (the video's
+               first 8 frames); the committed TORCH_TRACK_QUALITY.json's
+               freshness
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -197,6 +217,14 @@ QUALITY_RUNS = (
             "--val_images", "16", "--steps", "60"]))
 QUALITY_ARTIFACTS = ("TORCH_QUALITY_R18.json", "TORCH_QUALITY_MASK.json",
                      "TORCH_QUALITY_EFFDET.json")
+# tracking-proof phase (14): JAX r05's hard settings, the steps (one epoch
+# of the proof's 400 scenes at B=8) and the video cut, the gates at 0; a
+# 50-step detector scores under the proof's 0.7, so every detection goes
+# to the trackers
+TRACK_QUALITY_FLAGS = ["--hard", "--steps", "50", "--num_frames", "24",
+                       "--min_confidence", "0", "--min_ap", "0",
+                       "--min_mota", "0", "--min_idf1", "0",
+                       "--min_class_mota", "0"]
 # gradient leaves that vanish in exact arithmetic: batch-statistics BN
 # removes any per-channel constant added before it, so the bias of a conv
 # that feeds a BN and the beta of each MBConv's project BN (its map
@@ -1192,19 +1220,70 @@ def phase_stage():
     return results
 
 
+def actev_args(tmp, tracking_dir, *extra):
+    """The CLI's arguments for the ActEV path (phase 7 of the module note),
+    with MOT files under ``tracking_dir`` and ``extra`` flags."""
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    return cli.get_args([
+        "--video_dir", tmp, "--video_lst_file", os.path.join(tmp, "none"),
+        "--short_edge_size", str(ACTEV_H), "--max_size", str(ACTEV_W),
+        "--add_mask", "--frame_gap", str(FRAME_GAP), "--im_batch_size",
+        str(BATCH), "--get_tracking", "--tracking_dir", tracking_dir,
+        "--min_confidence", "0.0", "--pixel_format", "bgr", "--prefetch",
+        "3", *extra])
+
+
+def drive_actev(args, cfg, model, name):
+    """Phase 7's video (N_BATCHES batches of BATCH 1920x1080 frames at
+    FRAME_GAP) through the CLI's process_video with ``args``, the launch
+    counts set to 0 just before; fails unless every frame is processed, B1
+    and B2 launch 3 times a batch each, and each tracked class has a MOT
+    file. Returns (runner, frames, wall s, B1 launches, B2 launches, MOT
+    (rows, ids) by class)."""
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.runtime import DetectionRunner
+
+    runner = CheckedRunner(DetectionRunner(model), cfg.result_per_im,
+                           cfg.num_class, masks=True)
+    n_frames = FRAME_GAP * BATCH * N_BATCHES
+    RA.multilevel_roi_align_cuda.launches = 0
+    RS.fused_bottleneck_stage_cuda.launches = 0
+    t0 = time.perf_counter()
+    frames = cli.process_video(args, cfg, runner, name + ".mp4",
+                               cfg.classid2name, None,
+                               vcap=SyntheticVideo(n_frames, h=ACTEV_H,
+                                                   w=ACTEV_W))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    roi_n = RA.multilevel_roi_align_cuda.launches
+    stage_n = RS.fused_bottleneck_stage_cuda.launches
+    if frames != n_frames // FRAME_GAP or runner.batches != N_BATCHES:
+        raise AssertionError(f"{frames} frames in {runner.batches} batches")
+    if roi_n != 3 * runner.batches or stage_n != 3 * runner.batches:
+        raise AssertionError(
+            f"{runner.batches} batches launched roi_align {roi_n} and the "
+            f"bottleneck stage {stage_n} times, want 3 per batch each")
+    rows = {}
+    for obj in args.tracking_objs.split(","):
+        path = os.path.join(args.tracking_dir, name, obj, name + ".txt")
+        with open(path) as f:
+            lines = [ln for ln in f if ln.strip()]
+        rows[obj] = (len(lines), len({ln.split(",")[1] for ln in lines}))
+    return runner, frames, wall, roi_n, stage_n, rows
+
+
 def actev_setup(tmp, device):
     """The CLI's arguments, configuration and random weights for the ActEV
     path (phase 7 of the module note), writing under ``tmp``."""
     from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
         as cli
     from object_detection_tracking_tpu_torch.params import init_params
-    args = cli.get_args([
-        "--video_dir", tmp, "--video_lst_file", os.path.join(tmp, "none"),
-        "--short_edge_size", str(ACTEV_H), "--max_size", str(ACTEV_W),
-        "--add_mask", "--frame_gap", str(FRAME_GAP), "--im_batch_size",
-        str(BATCH), "--get_tracking", "--tracking_dir",
-        os.path.join(tmp, "actev_tracks"), "--min_confidence", "0.0",
-        "--pixel_format", "bgr", "--prefetch", "3"])
+    args = actev_args(tmp, os.path.join(tmp, "actev_tracks"))
     cfg = dataclasses.replace(cli.build_config(args, device),
                               backbone_impl="pallas")
     got = (cfg.resnet_depth, cfg.use_dilations, cfg.use_frcnn_class_agnostic,
@@ -1231,11 +1310,6 @@ def phase_actev(tmp):
     backbone, through process_video (phase 7 of the module note)."""
     import numpy as np
     import torch
-    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
-        as cli
-    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
-    from object_detection_tracking_tpu_torch.ops import roi_align as RA
-    from object_detection_tracking_tpu_torch.runtime import DetectionRunner
 
     device = torch.device("cuda")
     args, cfg, tree = actev_setup(tmp, device)
@@ -1251,32 +1325,9 @@ def phase_actev(tmp):
     torch.cuda.synchronize()
     del warm
 
-    runner = CheckedRunner(DetectionRunner(model), cfg.result_per_im,
-                           cfg.num_class, masks=True)
     n_frames = FRAME_GAP * BATCH * N_BATCHES
-    RA.multilevel_roi_align_cuda.launches = 0
-    RS.fused_bottleneck_stage_cuda.launches = 0
-    t0 = time.perf_counter()
-    frames = cli.process_video(args, cfg, runner, "actev.mp4",
-                               cfg.classid2name, None,
-                               vcap=SyntheticVideo(n_frames, h=ACTEV_H,
-                                                   w=ACTEV_W))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    roi_n = RA.multilevel_roi_align_cuda.launches
-    stage_n = RS.fused_bottleneck_stage_cuda.launches
-    if frames != n_frames // FRAME_GAP or runner.batches != N_BATCHES:
-        raise AssertionError(f"{frames} frames in {runner.batches} batches")
-    if roi_n != 3 * runner.batches or stage_n != 3 * runner.batches:
-        raise AssertionError(
-            f"{runner.batches} batches launched roi_align {roi_n} and the "
-            f"bottleneck stage {stage_n} times, want 3 per batch each")
-    rows = {}
-    for obj in ("Person", "Vehicle"):
-        path = os.path.join(tmp, "actev_tracks", "actev", obj, "actev.txt")
-        with open(path) as f:
-            lines = [ln for ln in f if ln.strip()]
-        rows[obj] = (len(lines), len({ln.split(",")[1] for ln in lines}))
+    runner, frames, wall, roi_n, stage_n, rows = drive_actev(
+        args, cfg, model, "actev")
     names = {i: n for n, i in cfg.classname2id.items()}
     by_name = {names.get(k, k): v for k, v in sorted(runner.by_label.items())}
     if runner.dets == 0 or sum(r for r, _ in rows.values()) == 0:
@@ -1349,6 +1400,39 @@ def phase_actev(tmp):
     unfused = build_model(dataclasses.replace(cfg, backbone_impl="xla"),
                           tree, device)
     return model, unfused, x, res
+
+
+def phase_tmot(tmp, model, x, actev):
+    """The TMOT tracker on the ActEV path: phase 7's model and video through
+    process_video with --tracker tmot, its checks, and B1 and B2 redone on
+    one bf16 forward's own inputs (phase 13 of the module note)."""
+    import torch
+
+    cfg = model.config
+    args = actev_args(tmp, os.path.join(tmp, "tmot_tracks"), "--tracker",
+                      "tmot")
+    runner, frames, wall, roi_n, stage_n, rows = drive_actev(
+        args, cfg, model, "tmot")
+    tmot_ms = 1e3 * runner.consumer_s / frames
+    ds_ms = actev["caller_ms"] / BATCH
+    res = {"frames": frames, "batches": runner.batches, "wall_s": wall,
+           "fps": frames / wall, "roi_launches": roi_n,
+           "stage_launches": stage_n, "track_rows": rows,
+           "caller_ms_per_frame": tmot_ms,
+           "deep_sort_caller_ms_per_frame": ds_ms,
+           "runner_ms": 1e3 * runner.runner_s / runner.batches}
+    log("tmot", f"--tracker tmot: {frames} frames of {ACTEV_W}x{ACTEV_H} in "
+        f"{runner.batches} batches of {BATCH}: {wall:.3f} s wall, "
+        f"{res['fps']:.2f} processed fps; launches: roi_align {roi_n}, "
+        f"bottleneck stage {stage_n} (3 per batch each); MOT rows/ids "
+        f"{rows}")
+    log("tmot", f"host ms a frame in the caller (tracker, MOT rows): TMOT "
+        f"{tmot_ms:.2f}, Deep SORT {ds_ms:.2f} (phase 7); random weights "
+        f"make the detection load an artefact (PERF.md section 7)")
+    with torch.inference_mode():
+        out = model(x)
+    res["check"] = main_path_kernel_check(model, x, out, "tmot")
+    return res
 
 
 def calibrate_bn(model, x):
@@ -2287,12 +2371,13 @@ def cv2_blocked():
             sys.modules["cv2"] = saved
 
 
-def quality_step_check(trainer, ds):
+def quality_step_check(trainer, ds, pools=(7, 14), phase="quality"):
     """B1 and B1b on one R18 proof step's own inputs, against their plain
     versions: the proof's first batch (B=8, f32) through the trained
-    model, the box head's N=512 at P=7 and the mask head's fg rows at
-    P=14, read off the step's autograd graph (roi_backward_inputs).
-    Returns ({label: B1 entry}, {label: B1b entry})."""
+    model, the box head's N=512 at P=7 and (with masks) the mask head's fg
+    rows at P=14, read off the step's autograd graph
+    (roi_backward_inputs). Returns ({label: B1 entry}, {label: B1b
+    entry})."""
     import numpy as np
     import torch
     device = trainer.model.device
@@ -2303,18 +2388,18 @@ def quality_step_check(trainer, ds):
     gen.manual_seed(0)
     captured = roi_backward_inputs(
         trainer.losses(*tb, generator=gen)["total_loss"])
-    if sorted(captured) != [7, 14]:
+    if sorted(captured) != list(pools):
         raise AssertionError(f"a proof step pooled at {sorted(captured)}, "
-                             f"want the box head's 7 and the mask head's 14")
+                             f"want {list(pools)}")
     roi, bwd = {}, {}
     for pool in sorted(captured):
         feats, boxes, strides, grad_out, levels = captured[pool]
         label = (f"B={boxes.shape[0]} N={boxes.shape[1]} P={pool} "
                  f"{str(feats[0].dtype)[6:]}")
-        roi[label] = check_roi_launch("quality", label, feats, strides,
+        roi[label] = check_roi_launch(phase, label, feats, strides,
                                       boxes, None, pool, True)
         bwd[label] = check_roi_backward(label, feats, boxes, strides, pool,
-                                        grad_out, levels, phase="quality")
+                                        grad_out, levels, phase=phase)
     return roi, bwd
 
 
@@ -2451,6 +2536,165 @@ def phase_quality(tmp):
     return out
 
 
+def track_quality_run(tmp, tracker, counters, kept):
+    """One cut run of the tracking proof through ``track_quality_proof.run``
+    in the workdir ``tmp`` (the second run reuses the first one's
+    detector), its checks and its summary; ``kept`` receives the
+    detector's trainer and train set, the tracking model and the proof
+    video."""
+    import io
+    from object_detection_tracking_tpu_torch.cli import main as driver
+    from object_detection_tracking_tpu_torch.cli import \
+        track_quality_proof as T
+    from object_detection_tracking_tpu_torch.data import synthetic_np
+
+    args = T.get_args(TRACK_QUALITY_FLAGS + [
+        "--tracker", tracker, "--workdir", tmp])
+    for fn in counters:
+        fn.launches = 0
+    real_train, real_load = driver.train, T.load_detector
+
+    def train(train_args, cfg, model, ds, *rest, **kw):
+        res = real_train(train_args, cfg, model, ds, *rest, **kw)
+        kept.update(trainer=res["trainer"], ds=ds)
+        return res
+
+    def load_detector(*a):
+        cfg, model, step = real_load(*a)
+        kept["model"] = model
+        return cfg, model, step
+    real_video = synthetic_np.generate_video
+
+    def generate_video(*a, **kw):
+        kept["video"], gt = real_video(*a, **kw)
+        return kept["video"], gt
+    printed = io.StringIO()
+    driver.train, T.load_detector = train, load_detector
+    synthetic_np.generate_video = generate_video
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            art = T.run(args)
+    finally:
+        driver.train, T.load_detector = real_train, real_load
+        synthetic_np.generate_video = real_video
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    det, per = art["detector"], art["kernel_launches"]
+    # hypotheses scored: the tuned pass's, then the reference-parity pass's
+    hyps = (art["fp"] + art["n_gt"] - art["fn"], int(sum(
+        m["fp"] + m["n_matches"]
+        for m in art["reference_parity"]["per_class"].values())))
+    log("track-quality", f"{tracker}: {art['num_frames']} frames of "
+        f"{args.image_size} px, {art['num_objects']} objects, hard "
+        f"{art['hard']}: MOTA {art['mota']}, IDF1 {art['idf1']}, MOTP "
+        f"{art['motp']}, IDSW {art['idsw']}, FP {art['fp']}, FN "
+        f"{art['fn']} of {art['n_gt']}, {hyps[0]} boxes scored; reference "
+        f"parity {hyps[1]} boxes scored, MOTA "
+        f"{art['reference_parity']['mota']}, IDF1 "
+        f"{art['reference_parity']['idf1']}; detector "
+        f"{'trained here' if det['trained_here'] else 'reused'}: "
+        f"{art['trained_steps']} steps at {det['step_ms_median']} ms "
+        f"(median), AP@0.5 {det['ap50']}; {wall:.1f} s wall; launches: "
+        f"detector {per['detector']}, tracking {per['tracking']}")
+    for k in ("mota", "idf1", "motp"):
+        if not math.isfinite(art[k]):
+            raise AssertionError(f"{tracker}: {k} {art[k]}")
+    if not sum(hyps):
+        raise AssertionError(f"{tracker}: no track rows reached the score")
+    steps = art["trained_steps"]
+    want_train = {"multilevel_roi_align_cuda": steps,
+                  "multilevel_roi_align_backward_cuda": steps,
+                  "fused_bottleneck_stage_cuda": 0}
+    want_eval = {"multilevel_roi_align_cuda": 2 * det["val_images"],
+                 "multilevel_roi_align_backward_cuda": 0,
+                 "fused_bottleneck_stage_cuda": 0}
+    if per["detector"] != {"train": want_train, "eval": want_eval}:
+        raise AssertionError(f"{tracker}: the detector launched "
+                             f"{per['detector']}, want train {want_train}, "
+                             f"eval {want_eval}")
+    batches = -(-art["num_frames"] // 8)
+    want_track = {"multilevel_roi_align_cuda": 2 * batches,
+                  "multilevel_roi_align_backward_cuda": 0,
+                  "fused_bottleneck_stage_cuda": 0}
+    for name, got in per["tracking"].items():
+        if got != want_track:
+            raise AssertionError(f"{tracker} {name}: tracking launched "
+                                 f"{got}, want {want_track}")
+    want_all = {k: 2 * want_track[k] + (
+        want_train[k] + want_eval[k] if det["trained_here"] else 0)
+        for k in launches}
+    if launches != want_all:
+        raise AssertionError(f"{tracker}: {launches} launched in all, want "
+                             f"{want_all}")
+    return {"mota": art["mota"], "idf1": art["idf1"], "motp": art["motp"],
+            "idsw": art["idsw"], "reference_parity": {
+                k: art["reference_parity"][k] for k in ("mota", "idf1")},
+            "trained_here": det["trained_here"], "steps": steps,
+            "step_ms_median": det["step_ms_median"], "ap50": det["ap50"],
+            "wall_s": wall, "launches": per}
+
+
+def phase_track_quality(tmp):
+    """The port's tracking proof, cut to a few steps and frames, for both
+    trackers through its own entry point with cv2 blocked; B1 and B1b held
+    against their plain versions on a proof step's and a tracking
+    forward's own inputs; the committed artifact's freshness (phase 14 of
+    the module note). Returns a summary dict."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.utils.source_hash import \
+        quality_tree_hash
+
+    counters = (RA.multilevel_roi_align_cuda,
+                RA.multilevel_roi_align_backward_cuda,
+                RS.fused_bottleneck_stage_cuda)
+    log("track-quality", "gates at 0 here: the gates belong to the "
+        "committed TORCH_TRACK_QUALITY.json")
+    kept, out = {}, {}
+    with cv2_blocked() as cv2_present:
+        log("track-quality", f"cv2 {'installed' if cv2_present else 'absent'}"
+            " on this machine; blocked for the proof")
+        for tracker in ("deep_sort", "tmot"):
+            out[tracker] = track_quality_run(tmp, tracker, counters, kept)
+    if not out["deep_sort"]["trained_here"] or out["tmot"]["trained_here"]:
+        raise AssertionError("the tmot run did not reuse the detector")
+    log("track-quality", "both trackers ran with cv2 blocked")
+    out["roi"], out["bwd"] = quality_step_check(
+        kept["trainer"], kept["ds"], pools=(7,), phase="track-quality")
+    # one tracking forward: the proof video's first batch of 8 frames
+    model, video = kept["model"], kept["video"]
+    video.seek(0)
+    x = torch.from_numpy(np.stack([video.read()[1] for _ in range(8)])).to(
+        model.device)
+    with torch.inference_mode():
+        fwd = model(x)
+    out["track_roi"] = main_path_kernel_check(model, x, fwd,
+                                              "track-quality",
+                                              timed=True)["roi"]
+    tree = quality_tree_hash()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "TORCH_TRACK_QUALITY.json")
+    fresh = {}
+    if not os.path.exists(path):
+        fresh["TORCH_TRACK_QUALITY.json"] = "missing"
+    else:
+        with open(path) as f:
+            art = json.load(f)
+        for tracker in ("deep_sort", "tmot"):
+            a = art[tracker]
+            fresh[tracker] = ("fresh" if a["tree_hash"] == tree else
+                              f"stale (made at {a['tree_hash']})")
+            log("track-quality", f"TORCH_TRACK_QUALITY.json {tracker}: MOTA "
+                f"{a['mota']}, IDF1 {a['idf1']}, passed {a['passed']}, "
+                f"{a['trained_steps']} steps on {a['device']}: "
+                f"{fresh[tracker]} against tree {tree}")
+    out["artifact"] = fresh
+    return out
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2550,6 +2794,8 @@ def main():
         torch.cuda.empty_cache()
         model, unfused, x, actev = phase_actev(tmp)
     prof = phase_profile(model, x, "actev-profile", unfused=unfused)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmot = phase_tmot(tmp, model, x, actev)
     del model, unfused, x
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2563,19 +2809,28 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         quality = phase_quality(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        track_quality = phase_track_quality(tmp)
+    tq_roi = (list(track_quality["roi"].values())
+              + list(track_quality["track_roi"].values()))
+    tq_launches = {t: track_quality[t]["launches"]
+                   for t in ("deep_sort", "tmot")}
 
     roi = actev["check"]["roi"]
     four = {k: v for k, v in kres.items() if k[0] in (1000, 100)}
     err = max([r[0] for r in four.values()] + [main_res["roi_err"]]
               + [r["err"] for r in roi.values()]
               + [r["err"] for r in train["roi"].values()]
-              + [r["err"] for r in quality["r18-mask"]["roi"].values()])
+              + [r["err"] for r in quality["r18-mask"]["roi"].values()]
+              + [r["err"] for r in tmot["check"]["roi"].values()]
+              + [r["err"] for r in tq_roi])
     bwd = train["bwd"]
     _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
     _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
     bf = [sres[(name, "bfloat16")] for name, *_ in STAGES]
     stage_err = max([r["err"] for r in sres.values()]
-                    + actev["check"]["stage"])
+                    + actev["check"]["stage"] + tmot["check"]["stage"])
     roi_device = sum(r["device_ms"] for r in roi.values())
     roi_bound = sum(r["bound_ms"] for r in roi.values())
     kernels = {"kernels": [{
@@ -2593,6 +2848,11 @@ def main():
         "per_launch": roi,
         "train_launches": train["roi_align_launches"],
         "train_per_launch": train["roi"],
+        "tmot_launches": tmot["roi_launches"],
+        "track_quality_launches": tq_launches,
+        "track_quality_per_launch": {
+            "train_step": track_quality["roi"],
+            "tracking_forward": track_quality["track_roi"]},
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -2606,14 +2866,21 @@ def main():
                   "training phase's 8 steps (box head N=512 P=7, mask head "
                   "P=14, B=2), train_per_launch timed on a step's own "
                   "inputs; max_abs_err also over the R18 quality proof "
-                  "step's launches (B=8, 160 px, f32; quality.r18-mask.roi)"},
+                  "step's launches (B=8, 160 px, f32; quality.r18-mask.roi)"
+                  ", the TMOT pass's forward (bf16, as the ActEV forward) "
+                  "and the tracking proof's train step and tracking "
+                  "forward (B=8, 160 px, f32; track_quality_per_launch); "
+                  "tmot_launches: phase 13's 8 batches; "
+                  "track_quality_launches: phase 14's detector training "
+                  "and eval and its tracking passes, by tracker"},
         {"name": "roi_align_backward", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"
                      "roi_align_pallas.py:600",
          "launches": train["roi_align_backward_launches"],
          "max_abs_err": max(r["err_f32"] for r in list(bwd.values()) + list(
-             quality["r18-mask"]["bwd"].values())),
+             quality["r18-mask"]["bwd"].values())
+             + list(track_quality["bwd"].values())),
          "max_abs_err_bf16": max(r["err_bf16"] for r in bwd.values()),
          "ms": sum(r["ms"] for r in bwd.values()),
          "device_ms": sum(r["device_ms"] for r in bwd.values()),
@@ -2622,6 +2889,8 @@ def main():
          "bound_by": "bytes", "library_ms": None,
          "design_bytes_ms": sum(r["design_bytes_ms"] for r in bwd.values()),
          "per_launch": bwd,
+         "track_quality_launches": tq_launches,
+         "track_quality_per_launch": track_quality["bwd"],
          "shapes": "the training step's two launches (B=2, 1088x1920 "
                    "pyramid, C=256, bf16 features, float32 grad_out): box "
                    "head N=512 P=7, mask head fg rows P=14; max_abs_err "
@@ -2633,13 +2902,15 @@ def main():
                    "plan's scratch, over the memory rate, the design's "
                    "overhead against bound_ms; max_abs_err also over the "
                    "R18 quality proof step's two launches (B=8, 160 px, "
-                   "f32; quality.r18-mask.bwd)"},
+                   "f32; quality.r18-mask.bwd) and the tracking proof "
+                   "step's one (track_quality_per_launch)"},
         {"name": "bottleneck_stage", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/"
                    "bottleneck_stage.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"
                      "resnet_stage_pallas.py:155",
          "launches": actev["stage_launches"], "max_abs_err": stage_err,
+         "tmot_launches": tmot["stage_launches"],
          "ms": sum(r["ms"] for r in bf),
          "plain_ms": sum(r["plain_ms"] for r in bf),
          "bound_ms": sum(r["bound_ms"] for r in bf),
@@ -2668,6 +2939,9 @@ def main():
                         if k not in ("roi", "d6")},
         "effdet_d6": {k: v for k, v in effdet["d6"].items() if k != "roi"},
         "actev_path": {k: v for k, v in actev.items() if k != "check"},
+        "tmot_path": {k: v for k, v in tmot.items() if k != "check"},
+        "track_quality": {k: v for k, v in track_quality.items()
+                          if k not in ("roi", "bwd", "track_roi")},
         "actev_profile": prof,
         "train": {k: v for k, v in train.items() if k not in ("roi", "bwd")},
         "effdet_train": effdet_train,

@@ -2,7 +2,8 @@
 object_detection_tracking_tpu/cli/obj_detect_tracking.py:40-451).
 
 Per video: decode -> resize on a host thread, the batched detector on the
-GPU with pipelined transfers, Deep SORT per tracked class on the host;
+GPU with pipelined transfers, Deep SORT or TMOT (``--tracker tmot``, the
+JDE tracker) per tracked class on the host;
 writes per-frame detection JSON and MOT-format track txt in the JAX CLI's
 formats. Same flags as the JAX CLI, plus ``--device`` (default cuda; with
 no GPU it raises unless ``--device cpu`` is given). ``--compute_dtype``
@@ -43,6 +44,7 @@ from ..tracking.deep_sort import (Tracker, create_obj_infos, det_level_nms,
                                   filter_short_objs, linear_inter_bbox,
                                   link_tracklets)
 from ..tracking.deep_sort.nn_matching import NearestNeighborDistanceMetric
+from ..tracking.tmot import JDETracker
 from ..utils.masks import fill_full_mask, rle_encode
 
 # flags of parts not ported yet -> ROADMAP item that ports them
@@ -119,7 +121,7 @@ def get_args(argv=None):
     parser.add_argument("--get_tracking", action="store_true")
     parser.add_argument("--tracker", default="deep_sort",
                         choices=["deep_sort", "tmot"],
-                        help="tmot = the JDE tracker (not ported yet)")
+                        help="tmot = the JDE tracker (tracking/tmot)")
     parser.add_argument("--track_max_second_lost", type=float, default=4.0)
     parser.add_argument("--emb_max_dist", type=float, default=0.7)
     parser.add_argument("--emb_agg_method", default="average",
@@ -167,9 +169,6 @@ def get_args(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP {item})")
-    if args.tracker == "tmot":
-        raise NotImplementedError(
-            "--tracker tmot is not ported yet (ROADMAP A6b)")
     return args
 
 
@@ -245,10 +244,18 @@ def process_video(args, cfg, runner, video_path, classid2name,
     results = {}
     tentative_buf = {}
     for obj in tracking_objs:
-        metric = NearestNeighborDistanceMetric(
-            "cosine", args.max_cosine_distance, args.nn_budget)
-        trackers[obj] = Tracker(metric, max_iou_distance=args.max_iou_distance,
-                                n_init=args.track_n_init)
+        if args.tracker == "tmot":
+            trackers[obj] = JDETracker(
+                conf_thres=args.min_confidence,
+                track_max_second_lost=args.track_max_second_lost,
+                emb_max_dist=args.emb_max_dist,
+                frame_gap=args.frame_gap)
+        else:
+            metric = NearestNeighborDistanceMetric(
+                "cosine", args.max_cosine_distance, args.nn_budget)
+            trackers[obj] = Tracker(
+                metric, max_iou_distance=args.max_iou_distance,
+                n_init=args.track_n_init)
         results[obj] = []
         tentative_buf[obj] = {}
 
@@ -308,10 +315,19 @@ def process_video(args, cfg, runner, video_path, classid2name,
                         coco_to_actev=coco_to_actev)
                     dets = det_level_nms(dets, args.nms_max_overlap)
                     tracker = trackers[obj]
-                    tracker.predict()
-                    tracker.update(dets)
-                    _store_tracks(tracker, cur_frame, results[obj],
-                                  tentative_buf[obj])
+                    if args.tracker == "tmot":
+                        # TMOT writes the matched detection's own box
+                        for t in tracker.update(
+                                [(d.tlwh, d.confidence, d.feature)
+                                 for d in dets]):
+                            b = t.cur_det_tlwh
+                            results[obj].append([cur_frame, t.track_id,
+                                                 b[0], b[1], b[2], b[3]])
+                    else:
+                        tracker.predict()
+                        tracker.update(dets)
+                        _store_tracks(tracker, cur_frame, results[obj],
+                                      tentative_buf[obj])
 
             if video_out_path is not None:
                 masks = host_out.get("final_masks")

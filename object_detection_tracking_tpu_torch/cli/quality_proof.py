@@ -11,8 +11,11 @@ exits 1 when AP@0.5 (or the mask IOU) misses its gate.
 
 The flags and defaults are the JAX package's, plus ``--device`` (default
 cuda; with no GPU it raises unless ``--device cpu`` is given). In float32
-on a GPU, TF32 is off for cuDNN and matmul. ``--video_domain`` needs the
-mp4 round trip through cv2's video writer and is not ported (ROADMAP A6b).
+on a GPU, TF32 is off for cuDNN and matmul. ``--video_domain`` trains the
+tracking proof's detector on JAX's recipe: half the training scenes are
+frames sampled from moving-shapes clips, the rest stills, and the
+validation scenes are clip frames; the clips are rendered losslessly in
+memory, where JAX's went through mp4 (ROADMAP C12).
 
 Usage:
   python -m object_detection_tracking_tpu_torch.cli.quality_proof \\
@@ -41,6 +44,10 @@ from ..utils.source_hash import quality_tree_hash
 JAX_REFERENCE = {"rcnn": "QUALITY_r05.json", "mask": "QUALITY_MASK_r05.json",
                  "efficientdet": "QUALITY_EFFDET_r05.json"}
 RENDERER = "numpy, lossless (no JPEG); ROADMAP C11"
+# --video_domain: JAX's video-domain detector has no committed artifact of
+# its own; its AP is printed by the tracking proof it feeds
+RENDERER_VIDEO = "numpy, lossless (no JPEG, no mp4); ROADMAP C11, C12"
+JAX_REFERENCE_VIDEO = "TRACK_QUALITY_r05.json (its detector phase)"
 
 
 def get_args(argv=None):
@@ -67,7 +74,10 @@ def get_args(argv=None):
                    help="hard scene statistics: 4x+ scale spread, crowded "
                         "spawns, partial occlusion, 8 objects max")
     p.add_argument("--video_domain", action="store_true",
-                   help="not ported (ROADMAP A6b): needs the mp4 round trip")
+                   help="train on frames of moving-shapes clips mixed with "
+                        "stills and evaluate on clip frames (the tracking "
+                        "proof's domain); box-level gt, so not with "
+                        "--add_mask")
     p.add_argument("--detector", default="rcnn",
                    help="'rcnn' (R18-FPN) or an efficientdet name "
                         "(e.g. efficientdet-d0)")
@@ -86,7 +96,8 @@ def train_flags(args) -> list:
     is_effdet = args.detector.startswith("efficientdet")
     steps_per_epoch = max(1, args.train_images // args.batch_size)
     epochs = max(1, -(-args.steps // steps_per_epoch))
-    run_name = "quality_effdet" if is_effdet else "quality_r18"
+    run_name = ("quality_effdet" if is_effdet else "quality_r18") + \
+        ("_vid" if args.video_domain else "")
     return [
         "train",
         "--outbasepath", os.path.join(args.workdir, "runs"),
@@ -129,12 +140,47 @@ def proof_config(args, train_args, device):
                                rpn_train_post_nms_topk=512)
 
 
+def hard_size_range(image_size: int):
+    """The hard mode's object sizes: a 4x+ spread for scenes and clips."""
+    return (max(image_size // 16, 8), image_size // 3)
+
+
 def scene_kwargs(args) -> dict:
     if not args.hard:
         return {}
-    return dict(size_range=(max(args.image_size // 16, 8),
-                            args.image_size // 3),
+    return dict(size_range=hard_size_range(args.image_size),
                 crowding=0.35, overlap_iou=0.45, max_objects=8)
+
+
+def render_scenes(args):
+    """The (train, val) scenes of JAX's proof for these flags. With
+    ``--video_domain``: ``train_images // 2`` frames of 24-frame clips
+    (every 3rd, prefix ``trv``, seed 0), then the rest as stills (prefix
+    ``tr``, seed 1, normal statistics); the val scenes from 12-frame clips
+    (every 6th, prefix ``va``, seed 777); ``--hard`` widens the clips'
+    size range."""
+    from ..data.synthetic_np import generate_dataset, generate_video_dataset
+    hw = (args.image_size, args.image_size)
+    if not args.video_domain:
+        kw = scene_kwargs(args)
+        return (generate_dataset(args.train_images, image_hw=hw, seed=0,
+                                 prefix="tr", **kw),
+                generate_dataset(args.val_images, image_hw=hw, seed=777,
+                                 prefix="va", **kw))
+    if args.add_mask:
+        raise ValueError("--video_domain has box-level gt only: no "
+                         "--add_mask")
+    kw = (dict(size_range=hard_size_range(args.image_size)) if args.hard
+          else {})
+    n_vid = args.train_images // 2
+    train = generate_video_dataset(
+        n_vid, image_hw=hw, seed=0, prefix="trv", frames_per_video=24,
+        sample_every=3, **kw) + generate_dataset(
+        args.train_images - n_vid, image_hw=hw, seed=1, prefix="tr")
+    val = generate_video_dataset(
+        args.val_images, image_hw=hw, seed=777, prefix="va",
+        frames_per_video=12, sample_every=6, **kw)
+    return train, val
 
 
 class StepClock:
@@ -174,7 +220,7 @@ def card_name(device) -> str:
     return line or torch.cuda.get_device_name(device)
 
 
-def _launches():
+def launch_counts():
     """Each kernel wrapper's launch count so far."""
     from ..ops import resnet_stage as RS
     from ..ops import roi_align as RA
@@ -183,18 +229,14 @@ def _launches():
         RS.fused_bottleneck_stage_cuda)}
 
 
-def _since(before):
-    return {k: v - before[k] for k, v in _launches().items()}
+def launches_since(before):
+    return {k: v - before[k] for k, v in launch_counts().items()}
 
 
 def run(args):
     """Render, train, evaluate; returns the artifact's fields and the total
     loss of every step."""
-    if args.video_domain:
-        raise NotImplementedError(
-            "--video_domain needs the mp4 round trip through cv2's video "
-            "writer; not ported yet (ROADMAP A6b)")
-    from ..data.synthetic_np import MemoryDetectionDataset, generate_dataset
+    from ..data.synthetic_np import MemoryDetectionDataset
     from . import main as driver
     from .obj_detect_tracking import resolve_device
 
@@ -207,12 +249,7 @@ def run(args):
         torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.time()
-    hw = (args.image_size, args.image_size)
-    kw = scene_kwargs(args)
-    train_scenes = generate_dataset(args.train_images, image_hw=hw, seed=0,
-                                    prefix="tr", **kw)
-    val_scenes = generate_dataset(args.val_images, image_hw=hw, seed=777,
-                                  prefix="va", **kw)
+    train_scenes, val_scenes = render_scenes(args)
     print(f"rendered {args.train_images}+{args.val_images} images "
           f"in {time.time() - t0:.1f}s")
 
@@ -223,11 +260,11 @@ def run(args):
     ds = StepClock(MemoryDetectionDataset(
         train_scenes, cfg.classname2id, cfg.short_edge_size, cfg.max_size,
         **driver.train_dataset_kwargs(train_args, cfg)))
-    before = _launches()
+    before = launch_counts()
     t_train = time.time()
     res = driver.train(train_args, cfg, model, ds)
     train_seconds = time.time() - t_train
-    train_launches = _since(before)
+    train_launches = launches_since(before)
 
     # evaluate the final checkpoint
     ckpt = driver.latest_ckpt(driver.checkpoint_dir(train_args))
@@ -238,15 +275,15 @@ def run(args):
     val_ds = MemoryDetectionDataset(
         val_scenes, cfg.classname2id, cfg.short_edge_size, cfg.max_size,
         batch_size=1, max_gt=8, shuffle=False, flip_prob=0.0)
-    before = _launches()
+    before = launch_counts()
     ap = driver.run_eval(train_args, cfg, model, dataset=val_ds)
-    eval_launches = _since(before)
+    eval_launches = launches_since(before)
 
     mask_iou = None
     if args.add_mask:
-        before = _launches()
+        before = launch_counts()
         mask_iou = eval_mask_iou(cfg, model, val_scenes)
-        eval_launches["mask_iou"] = _since(before)
+        eval_launches["mask_iou"] = launches_since(before)
         print(f"mean matched mask IOU: {mask_iou:.4f}")
 
     # the port's RPN top-k is exact at any rpn_topk_recall (ROADMAP C3),
@@ -289,8 +326,9 @@ def run(args):
         "torch": torch.__version__,
         "compute_dtype": cfg.compute_dtype,
         "tf32": False,
-        "renderer": RENDERER,
-        "jax_reference": JAX_REFERENCE[kind],
+        "renderer": RENDERER_VIDEO if args.video_domain else RENDERER,
+        "jax_reference": (JAX_REFERENCE_VIDEO if args.video_domain
+                          else JAX_REFERENCE[kind]),
         "tree_hash": quality_tree_hash(),
     }, losses
 

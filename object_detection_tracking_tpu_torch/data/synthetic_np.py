@@ -11,9 +11,14 @@ are rasterised with OpenCV's integer rules (``drawing.cpp``: the midpoint
 filled circle, the edge-list polygon fill with its 8-connected outline,
 the fixed-point convex fill of a thick line with round caps).
 
+``generate_video`` renders ``synthetic.py generate_video``'s moving-shapes
+clip (the tracking proof's video) and its ground truth the same way, into
+an in-memory ``VideoReader``; ``generate_video_dataset`` samples such clips
+into training scenes as ``synthetic.py generate_video_dataset`` does.
+
 One difference stays: the file writer stores each image as JPEG at quality
-95, and the proof trained on its decodes; here the image is the lossless
-render.
+95 and each clip as mp4, and the proofs trained and tracked on their
+decodes; here every frame is the lossless render (ROADMAP C11, C12).
 
 ``MemoryDetectionDataset`` batches the scenes as ``DetectionTrainDataset``
 batches files: the same shuffle and flip order, box scaling, label mapping,
@@ -29,6 +34,7 @@ import numpy as np
 
 from ..ops.boxes import get_new_hw
 from .training import DetectionTrainDataset
+from .video import VideoReader
 
 SHAPE_CLASSES = ("Person", "Vehicle", "Bike")   # circle, square, triangle
 
@@ -411,6 +417,129 @@ def generate_dataset(num_images: int, image_hw=(160, 160),
             anno["masks"] = np.asarray(masks, np.float32).reshape(
                 -1, 28, 28)
         scenes.append(Scene(f"{prefix}{i:05d}", img, anno))
+    return scenes
+
+
+class MemoryVideo(VideoReader):
+    """A ``VideoReader`` over frames held in memory; ``seek`` rewinds, so
+    one render can be read more than once."""
+
+    def __init__(self, frames: List[np.ndarray], fps: float = 30.0):
+        self.frames = frames
+        self.num_frames = len(frames)
+        self.fps = fps
+        self.pos = 0
+
+    def read(self):
+        if self.pos >= self.num_frames:
+            return False, None
+        self.pos += 1
+        return True, self.frames[self.pos - 1]
+
+    def seek(self, frame_idx: int):
+        self.pos = frame_idx
+
+
+def _render_clip(num_frames: int, image_hw, num_objects: int, seed: int,
+                 size_range, speed_range):
+    """The frames and ground truth of ``synthetic.py generate_video``, its
+    draws in its order: returns ([H, W, 3] uint8 BGR frames, gt)."""
+    rng = np.random.RandomState(seed)
+    h, w = image_hw
+    bg = _textured_background(rng, h, w)
+    lo, hi = size_range or (18, min(h, w) // 4)
+    objs = []
+    for oid in range(num_objects):
+        cls = int(rng.randint(0, len(SHAPE_CLASSES)))
+        size = int(rng.randint(lo, max(hi, lo + 1)))
+        for _ in range(20):   # spread the starting positions out
+            x = float(rng.randint(2, w - size - 2))
+            y = float(rng.randint(2, h - size - 2))
+            if all(abs(x - o["x"]) > size or abs(y - o["y"]) > size
+                   for o in objs):
+                break
+        vx, vy = rng.uniform(*speed_range, 2) * rng.choice([-1, 1], 2)
+        color = tuple(int(c) for c in rng.randint(60, 255, 3))
+        objs.append(dict(id=oid, cls=cls, size=size, x=x, y=y,
+                         vx=float(vx), vy=float(vy), color=color))
+    frames, gt = [], {}
+    for t in range(num_frames):
+        frame = bg.copy()
+        frame_gt = []
+        for o in objs:
+            o["x"] += o["vx"]
+            o["y"] += o["vy"]
+            if o["x"] < 1 or o["x"] + o["size"] > w - 1:
+                o["vx"] *= -1
+                o["x"] = float(np.clip(o["x"], 1, w - o["size"] - 1))
+            if o["y"] < 1 or o["y"] + o["size"] > h - 1:
+                o["vy"] *= -1
+                o["y"] = float(np.clip(o["y"], 1, h - o["size"] - 1))
+            box = (o["x"], o["y"], o["x"] + o["size"], o["y"] + o["size"])
+            x1, y1, x2, y2 = (int(round(v)) for v in box)
+            if o["cls"] == 0:
+                r = o["size"] // 2
+                _fill_circle(frame, x1 + r, y1 + r, r, o["color"])
+            elif o["cls"] == 1:
+                # cv2.rectangle(thickness=-1): both corners inclusive
+                frame[max(y1, 0):y2 + 1, max(x1, 0):x2 + 1] = o["color"]
+            else:
+                _fill_poly(frame, [((x1 + x2) // 2, y1), (x1, y2),
+                                   (x2, y2)], o["color"])
+            frame_gt.append((o["id"], box, SHAPE_CLASSES[o["cls"]]))
+        frames.append(frame)
+        gt[t] = frame_gt
+    return frames, gt
+
+
+def generate_video(num_frames: int = 150, image_hw=(160, 160),
+                   num_objects: int = 4, seed: int = 0, size_range=None,
+                   speed_range=(0.8, 2.2)):
+    """The moving-shapes video of ``synthetic.py generate_video`` for the
+    same arguments, in memory: the frames it hands its video writer, bit
+    for bit, behind a ``MemoryVideo`` at 30 fps, and its ground truth
+    {frame_idx: [(track_id, (x1, y1, x2, y2), class_name), ...]}. Returns
+    (video, gt)."""
+    frames, gt = _render_clip(num_frames, image_hw, num_objects, seed,
+                              size_range, speed_range)
+    return MemoryVideo(frames), gt
+
+
+def generate_video_dataset(num_images: int, image_hw=(160, 160),
+                           seed: int = 0, prefix: str = "vf",
+                           num_objects: int = 5, size_range=None,
+                           frames_per_video: int = 40,
+                           sample_every: int = 2) -> List[Scene]:
+    """The scenes ``synthetic.py generate_video_dataset`` writes for the
+    same arguments: every ``sample_every``-th frame of clips rendered as
+    ``generate_video`` renders them (clip ``vid`` from seed ``seed + 7919 *
+    vid`` with ``2 + vid % (num_objects - 1)`` objects), named
+    ``<prefix>_<vid>_<frame>``, with box-level ground truth (no masks).
+    The pixels are the rendered frames, not their mp4 decodes."""
+    scenes = []
+    vid = 0
+    while len(scenes) < num_images:
+        n_before = len(scenes)
+        frames, gt = _render_clip(
+            frames_per_video, image_hw, 2 + (vid % max(num_objects - 1, 1)),
+            seed + 7919 * vid, size_range, (0.8, 2.2))
+        for fi, frame in enumerate(frames):
+            if len(scenes) >= num_images:
+                break
+            if fi % sample_every == 0:
+                anno = dict(
+                    boxes=np.asarray([b for _, b, _ in gt[fi]],
+                                     np.float32).reshape(-1, 4),
+                    labels=np.asarray([c for _, _, c in gt[fi]]))
+                scenes.append(Scene(f"{prefix}_{vid:03d}_{fi:04d}", frame,
+                                    anno))
+        if len(scenes) == n_before:
+            raise RuntimeError(
+                f"clip v{vid:03d} yielded no sampled frames "
+                f"(frames_per_video={frames_per_video}, "
+                f"sample_every={sample_every}); dataset generation "
+                "cannot make progress")
+        vid += 1
     return scenes
 
 

@@ -66,3 +66,36 @@ def linear_sum_assignment(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         rows = np.arange(n, dtype=np.int64)
         return rows, x.astype(np.int64)
     return scipy.optimize.linear_sum_assignment(cost)
+
+
+def lapjv_extended(cost: np.ndarray, cost_limit: float
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """lap.lapjv(extend_cost=True, cost_limit=...) semantics used by TMOT
+    (tmot/matching.py:26-37): rectangular cost with a per-assignment cost
+    cap; unassigned entries get -1.
+
+    Returns (x [n], y [m]): x[i] = matched column or -1, y[j] = matched row
+    or -1.
+    """
+    cost = np.asarray(cost, np.float64)
+    n, m = cost.shape
+    if n == 0 or m == 0:
+        return np.full(n, -1, np.int64), np.full(m, -1, np.int64)
+    # inf entries (e.g. fuse_motion gating) would poison the solver's
+    # arithmetic; anything >= cost_limit is equally unmatchable
+    cost = np.where(np.isfinite(cost), cost, cost_limit * 2.0)
+    # square extension trick (lap.lapjv extend_cost semantics): padding
+    # rows/cols cost cost_limit/2 and the pad-pad quadrant is 0, so a real
+    # assignment (i, j) survives iff cost[i, j] < cost_limit
+    size = n + m
+    big = np.full((size, size), cost_limit / 2.0, np.float64)
+    big[n:, m:] = 0.0
+    big[:n, :m] = cost
+    rows, cols = linear_sum_assignment(big)
+    x = np.full(n, -1, np.int64)
+    y = np.full(m, -1, np.int64)
+    for r, c in zip(rows, cols):
+        if r < n and c < m:
+            x[r] = c
+            y[c] = r
+    return x, y

@@ -3,8 +3,8 @@
 Each ``TORCH_QUALITY_*.json`` records the hash of the port's trees that
 produced it (the port of object_detection_tracking_tpu/utils/source_hash.py,
 over the port's own files, with its kernels' CUDA and C++ sources and
-their build, the in-memory scene renderer, the train loop, the mask paste
-and the proof itself). A reader compares it with ``quality_tree_hash()``
+their build, the in-memory scene and video renderer, the train loop, the
+mask paste, the video path and trackers, and the proofs themselves). A reader compares it with ``quality_tree_hash()``
 of the tree at hand to see whether the artifact is fresh.
 """
 
@@ -15,12 +15,14 @@ import os
 
 # every tree whose behavior the quality proofs measure: the models, their
 # kernels and how they are built, the train loop and its schedule, the
-# init, the scenes and batches, the eval and the mask paste, and the proof
+# init, the scenes, clips and batches, the eval and the mask paste, the
+# video path (process_video) and its trackers, and the proofs
 QUALITY_TREES = ("models", "train", "ops", "tracking", "runtime", "csrc",
                  "native.py", "config.py", "class_ids.py", "params.py",
                  "evaluation.py", "evaluation_mot.py", "data/synthetic.py",
                  "data/training.py", "data/synthetic_np.py",
-                 "utils/masks.py", "cli/main.py", "cli/quality_proof.py")
+                 "utils/masks.py", "cli/main.py", "cli/quality_proof.py",
+                 "cli/obj_detect_tracking.py", "cli/track_quality_proof.py")
 
 
 def quality_tree_hash(package_root: str | None = None) -> str:

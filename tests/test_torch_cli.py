@@ -11,7 +11,9 @@ ids, and the boxes agree to 0.05 px (float32 sums ordered differently move
 a box by ~1e-4 px; the files print two decimals). Both write per-frame
 JSON with RLE segmentations; decoded, each mask agrees with the JAX one on
 at least 99% of the frame's pixels (a mask value near 0.5 may threshold
-the other way). Frames go as BGR: the
+the other way). The same video and params go through both CLIs once more
+with ``--tracker tmot``, under the same rule for the MOT files. Frames go
+as BGR: the
 jitted JAX forward rounds the fused I420 conversion differently from its
 eager form (test_torch_forward.py covers I420).
 """
@@ -91,12 +93,37 @@ def run_both(tmp_path_factory):
     tcli.main(argv + ["--tracking_dir", str(tmp / "torch"), "--device", "cpu",
                       "--model_path", str(tmp / "params.npz"),
                       "--out_dir", str(tmp / "json")])
+
+    # the TMOT pass: same video, params and runner, --tracker tmot
+    jargs = jcli.get_args(argv + ["--tracker", "tmot", "--tracking_dir",
+                                  str(tmp / "jax_tmot")])
+    n_tmot = jcli.process_video(
+        jargs, cfg, runner, str(vdir / "v.mp4"), cfg.classid2name,
+        dict(coco_obj_to_actev_obj))
+    assert n_tmot == n_jax
+    tcli.main(argv + ["--tracker", "tmot", "--tracking_dir",
+                      str(tmp / "torch_tmot"), "--device", "cpu",
+                      "--model_path", str(tmp / "params.npz")])
     return n_jax, read_mot(str(tmp / "jax")), read_mot(str(tmp / "torch")), tmp
 
 
 def test_mot_files_match_jax_cli(run_both):
     n_jax, ref, got, _ = run_both
     assert n_jax == 12
+    assert sum(len(r) for r in ref.values()) > 0
+    for obj in ref:
+        assert got[obj].shape == ref[obj].shape, obj
+        np.testing.assert_array_equal(got[obj][:, :2], ref[obj][:, :2])
+        np.testing.assert_allclose(got[obj][:, 2:6], ref[obj][:, 2:6],
+                                   atol=0.05, rtol=0)
+
+
+def test_tmot_mot_files_match_jax_cli(run_both):
+    """--tracker tmot through both CLIs: the same frames and track ids, the
+    boxes (the matched detections' own) within 0.05 px."""
+    tmp = run_both[3]
+    ref, got = read_mot(str(tmp / "jax_tmot")), read_mot(str(tmp /
+                                                            "torch_tmot"))
     assert sum(len(r) for r in ref.values()) > 0
     for obj in ref:
         assert got[obj].shape == ref[obj].shape, obj
@@ -139,8 +166,9 @@ def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path):
                  "--use_conv_frcnn_head", "--use_lijun_video_loader"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcli.get_args(base + [flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        tcli.get_args(base + ["--tracker", "tmot"])
+    args = tcli.get_args(base + ["--tracker", "tmot"])
+    assert args.tracker == "tmot"
+    assert (args.track_max_second_lost, args.emb_max_dist) == (4.0, 0.7)
     import torch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):

@@ -3,8 +3,9 @@ solves an assignment and runs a training forward and backward with both
 ``jax`` and the JAX package blocked, no source of it (nor chip_smoke.py)
 imports the JAX package or reads one of its files, and its own copies of
 the JAX-free modules (config, class_ids, utils/masks, csrc/lapjv.cpp,
-data/training.py, data/synthetic.py, evaluation.py, the automl name map of
-utils/effdet_weights.py) hold the same values as the originals."""
+data/training.py, data/synthetic.py, evaluation.py, evaluation_mot.py,
+tracking/tmot/, the automl name map of utils/effdet_weights.py) hold the
+same values as the originals."""
 
 import ast
 import dataclasses
@@ -75,6 +76,17 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "assert sorted(zip(rows.tolist(), cols.tolist())) == "
         "[(0, 1), (1, 0), (2, 2)]\n"
         "assert assignment._load_native() is not None\n"
+        "from object_detection_tracking_tpu_torch.cli import "
+        "track_quality_proof\n"
+        "from object_detection_tracking_tpu_torch.tracking.tmot import "
+        "JDETracker\n"
+        "x, y = assignment.lapjv_extended(np.array([[0.1, 0.9], [0.2, "
+        "np.inf], [0.95, 0.3]]), cost_limit=0.5)\n"
+        "assert x.tolist() == [0, -1, 1] and y.tolist() == [0, 2], (x, y)\n"
+        "t = JDETracker(0.5)\n"
+        "for _ in range(2):\n"
+        "    out = t.update([((1., 2., 30., 40.), 0.9, np.ones(8))])\n"
+        "assert [s.track_id for s in out] == [1], out\n"
         f"bad = [m for m, v in sys.modules.items() if v is not None and "
         f"(m == 'jax' or m.startswith('jax.') or m == '{JAX_PKG}' or "
         f"m.startswith('{JAX_PKG}.'))]\n"
@@ -88,10 +100,12 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
 def test_no_source_imports_or_reads_the_jax_package():
     """Imports (Python ASTs, C #includes) and string constants other than
     docstrings and file:line citations must not name the JAX package."""
+    scanned = set()
     for path in _sources():
         with open(path) as f:
             text = f.read()
         rel = os.path.relpath(path, ROOT)
+        scanned.add(rel)
         if not path.endswith(".py"):
             for line in text.splitlines():
                 if line.lstrip().startswith("#include"):
@@ -123,6 +137,10 @@ def test_no_source_imports_or_reads_the_jax_package():
                 assert not _NAMES_JAX_PKG.match(name), (rel, node.lineno)
                 assert name != "jax" and not name.startswith("jax."), (
                     rel, node.lineno)
+    assert {"chip_smoke.py",
+            "object_detection_tracking_tpu_torch/cli/track_quality_proof.py",
+            "object_detection_tracking_tpu_torch/tracking/tmot/"
+            "multitracker.py"} <= scanned
 
 
 def test_training_runs_with_jax_and_the_jax_package_blocked():
@@ -277,7 +295,10 @@ def test_lapjv_source_is_the_jax_solver():
 
 
 @pytest.mark.parametrize("path", ["data/training.py", "data/synthetic.py",
-                                  "evaluation.py"])
+                                  "evaluation.py", "evaluation_mot.py",
+                                  "tracking/tmot/__init__.py",
+                                  "tracking/tmot/matching.py",
+                                  "tracking/tmot/multitracker.py"])
 def test_jax_free_module_copies_equal_the_originals(path):
     """The port's copies of the JAX package's numpy/cv2 modules are the
     same source, byte for byte (their relative imports resolve to the

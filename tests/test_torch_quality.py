@@ -245,7 +245,8 @@ class _Stop(Exception):
 
 
 PROOFS = {"rcnn": [], "rcnn-hard-mask": ["--hard", "--add_mask"],
-          "efficientdet-d0": ["--detector", "efficientdet-d0"]}
+          "efficientdet-d0": ["--detector", "efficientdet-d0"],
+          "rcnn-hard-video": ["--hard", "--video_domain"]}
 # flags that name places on disk: the JAX proof's lst, frames and
 # annotations (the port's scenes come from memory) and the run directory
 _PATHS = {"trainlst", "framepath", "annopath", "outbasepath"}
@@ -365,10 +366,21 @@ def test_tiny_proof_runs_on_the_cpu_without_jax_or_cv2(tmp_path):
 
 
 def test_proof_refuses_video_domain_and_a_missing_gpu(tmp_path):
+    """--video_domain with --add_mask is refused, as in JAX (the clips'
+    gt is box-level); alone it renders the video-domain mix."""
     import torch
     from object_detection_tracking_tpu_torch.cli import quality_proof as TQ
-    with pytest.raises(NotImplementedError, match="A6b"):
-        TQ.run(TQ.get_args(["--video_domain", "--device", "cpu"]))
+    with pytest.raises(ValueError, match="--add_mask"):
+        TQ.run(TQ.get_args(["--video_domain", "--add_mask", "--device",
+                            "cpu", "--workdir", str(tmp_path)]))
+    train, val = TQ.render_scenes(TQ.get_args(
+        ["--video_domain", "--train_images", "6", "--val_images", "3"]))
+    assert [s.name for s in train] == [
+        "trv_000_0000", "trv_000_0003", "trv_000_0006", "tr00000",
+        "tr00001", "tr00002"]
+    assert [s.name for s in val] == ["va_000_0000", "va_000_0006",
+                                     "va_001_0000"]
+    assert all("masks" not in s.anno for s in train[:3] + val)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             TQ.run(TQ.get_args(["--workdir", str(tmp_path)]))
@@ -382,8 +394,8 @@ def _hash(root):
 
 def test_tree_hash_moves_with_the_hashed_sources(tmp_path):
     """A byte more in a model, op, renderer, kernel, mask paste, train
-    loop or proof source moves the hash; the video CLI or a build product
-    does not."""
+    loop, video CLI or proof source moves the hash; a build product does
+    not."""
     copy = tmp_path / "pkg"
     shutil.copytree(PKG, copy, ignore=shutil.ignore_patterns(
         "build", "__pycache__"))
@@ -395,7 +407,10 @@ def test_tree_hash_moves_with_the_hashed_sources(tmp_path):
                        ("utils/masks.py", True), ("cli/main.py", True),
                        ("cli/quality_proof.py", True), ("params.py", True),
                        ("runtime/__init__.py", True),
-                       ("cli/obj_detect_tracking.py", False)]:
+                       ("cli/obj_detect_tracking.py", True),
+                       ("cli/track_quality_proof.py", True),
+                       ("evaluation_mot.py", True),
+                       ("tracking/tmot/multitracker.py", True)]:
         path = copy / rel
         text = path.read_bytes()
         path.write_bytes(text + b"\n")
