@@ -138,6 +138,28 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                N=512 P=7) and B1 on one tracking forward's (the video's
                first 8 frames); the committed TORCH_TRACK_QUALITY.json's
                freshness
+ 15. reid      the ReID CLIs' default extractors, osnet_x1_0 (Person) and
+               resnet101 (Vehicle), seeded weights saved as torchreid .pth
+               files (BN statistics measured on a seeded batch, each
+               residual branch's last BN gamma x0.2), at 256x128, B=64,
+               bf16: the forward's ms (median of 15 CUDA-event timings)
+               and crops a second, its kernel time by kind and busy share
+               (torch.profiler), peak memory, parameters, the preprocess of
+               64 crops of mixed sizes and the whole call apart; card f32
+               against the CPU's f32 on 16 crops (<= 1e-3 of max |CPU|,
+               TF32 off), card bf16 against card f32 (row cosine >= 0.99),
+               features finite; then, with cv2 blocked and phase 7's video
+               re-rendered in memory for every decode, single_video_reid's
+               main on phase 7's MOT files with each class's longest track
+               cut in two (at least one candidate pair scored; the output's
+               rows equal to the input's but for the ids) and
+               multi_video_reid's main on two cameras sharing that video
+               and those files, identical KRTD cameras (R = I, T = (0, 0,
+               5)): global ids one to one, every track with features
+               linked to its copy or, where the solver's cost cannot tell
+               them apart (crops inside one solid rectangle give equal
+               features), to a track that costs no more; B1, B1b and B2
+               launched 0 times (JAX's ReID reaches no Pallas kernel)
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -149,6 +171,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -235,6 +258,14 @@ INVARIANT_LEAF = re.compile(
     r"(^resample/p6|/resample_\d+_\d+_\d+|/fnode\d+/pw|_net/conv\d+/pw)/b$"
     r"|^backbone/group\d+/block\d+/project/bn/beta$")
 NOISE_SHARE = 1e-5
+# ReID phase (15): the CLIs' default extractors (--p_reid_model_name,
+# --v_reid_model_name), their crop size and the extractor's default batch
+REID_MODELS = (("Person", "osnet_x1_0"), ("Vehicle", "resnet101"))
+REID_SIZE, REID_BATCH = (256, 128), 64
+# card f32 (TF32 off) against the CPU's f32, as a share of max |CPU|: the
+# same float32 products summed in other orders, over ~100 convs; card bf16
+# against card f32: the least cosine of a crop's two feature rows
+REID_F32_REL, REID_COS_MIN, REID_CHECK_CROPS = 1e-3, 0.99, 16
 # f32 forward, ROIAlign kernel vs plain: share of the plain run's
 # detections matched by the kernel run (same label, box within 0.5 px).
 # Sums ~1e-6 apart can swap two detections' ranks; only a swap across the
@@ -980,10 +1011,13 @@ def kernel_kinds(prof, runs):
         k = e.key.lower()
         g = ("roi_align (csrc)" if "roi_align_fwd" in k else
              "bottleneck_stage (csrc)" if "bneck_conv" in k else
+             "pool" if "pool" in k else
              "conv (cuDNN)" if any(t in k for t in (
                  "fprop", "conv", "xmma", "cutlass", "implicit", "dgrad",
                  "wgrad", "nchw", "nhwc")) else
-             "gemm" if "gemm" in k or "sm90_xmma" in k else
+             # cuBLAS's Hopper kernels (nvjet) run the 1x1 convs as GEMMs
+             "gemm" if any(t in k for t in ("gemm", "sm90_xmma",
+                                            "nvjet")) else
              "sort" if "sort" in k or "radix" in k else
              "reduce" if "reduce" in k else
              "copy/cast" if "copy" in k else "elementwise/other")
@@ -2695,6 +2729,410 @@ def phase_track_quality(tmp):
     return out
 
 
+def reid_weights(name, path, seed):
+    """Seeded weights of ReID net ``name`` saved as a torchreid ``.pth`` at
+    ``path``, as tests/torch_port_common.py ``reid_net`` makes them at
+    small size: torchreid's init from ``seed``, each residual branch's last
+    BN gamma (OSBlockINin's IN gamma) x0.2, then every BatchNorm2d's
+    running statistics measured on the card over a seeded batch of
+    REID_BATCH normal images at REID_SIZE; the fc head's BN1d keeps unit
+    statistics. With the init's unit statistics a random OSNet's features
+    barely depend on the input and every crop would look alike. Returns
+    the parameter count."""
+    import torch
+    from torch import nn
+    from object_detection_tracking_tpu_torch.models.reid import osnet, \
+        resnet_reid
+    from object_detection_tracking_tpu_torch.models.reid.extractor import \
+        build_reid_model
+    torch.manual_seed(seed)
+    net = build_reid_model(name).cuda()
+    bns = []
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, resnet_reid.Bottleneck):
+                m.bn3.weight.mul_(0.2)
+            elif isinstance(m, resnet_reid.BasicBlock):
+                m.bn2.weight.mul_(0.2)
+            elif isinstance(m, (osnet.OSBlock, osnet.OSBlockAIN)):
+                last = m.conv3.bn if m.conv3.bn is not None else m.IN
+                last.weight.mul_(0.2)
+            if isinstance(m, nn.BatchNorm2d):
+                m.momentum = None     # running stats = this batch's
+                m.reset_running_stats()
+                bns.append(m)
+        gen = torch.Generator("cuda").manual_seed(seed + 1)
+        x = torch.randn(REID_BATCH, 3, *REID_SIZE, device="cuda",
+                        generator=gen)
+        net.train()
+        for m in net.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.eval()
+        net(x)
+    for m in bns:
+        m.momentum = 0.1
+    torch.save({k: v.cpu() for k, v in net.state_dict().items()}, path)
+    return sum(p.numel() for p in net.parameters())
+
+
+def reid_crops(n, seed):
+    """n BGR crops of 24-360 x 48-720 px cut from a 1920x1080 frame of the
+    synthetic video at random places (mixed sizes: every one resized)."""
+    import numpy as np
+    frame = SyntheticVideo(1, seed=seed, h=ACTEV_H, w=ACTEV_W).read()[1]
+    rng = np.random.RandomState(seed)
+    crops = []
+    for _ in range(n):
+        w, h = rng.randint(24, 361), rng.randint(48, 721)
+        x, y = rng.randint(0, ACTEV_W - w), rng.randint(0, ACTEV_H - h)
+        crops.append(frame[y:y + h, x:x + w].copy())
+    return crops
+
+
+def reid_extractor_run(name, path, crops):
+    """Phase 15's timing and checks of one extractor at REID_BATCH crops
+    (module note): the bf16 forward's CUDA-event ms, its host wall, kernel
+    time by kind and busy share, peak memory, the preprocess and the whole
+    call apart; card f32 against the CPU's f32 on REID_CHECK_CROPS crops;
+    card bf16 against card f32, row by row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from object_detection_tracking_tpu_torch.models.reid.extractor import \
+        FeatureExtractor
+
+    ex = FeatureExtractor(name, path)          # the CLIs': bf16 on the card
+    if ex.dtype != torch.bfloat16 or ex.device.type != "cuda":
+        raise AssertionError(f"{name}: {ex.dtype} on {ex.device}")
+
+    def host_ms(fn, reps):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        return sorted(walls)[reps // 2]
+
+    with torch.inference_mode():
+        xb = ex.preprocess(crops).to(ex.dtype).permute(0, 3, 1, 2)
+
+        def forward():
+            return ex.model(xb)
+        ms = median_ms([forward])[0]
+        wall = host_ms(forward, 5)
+        pre_ms = host_ms(lambda: ex.preprocess(crops), 15)
+        call_ms = host_ms(lambda: ex(crops), 5)
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    forward()
+                torch.cuda.synchronize()
+        total, groups = kernel_kinds(prof, 2)
+        n_kernels = sum(e.count for e in _cuda_events(prof)) // 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        forward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in ex.model.parameters())
+    log("reid", f"{name}: {n_params} params, bf16, B={len(crops)} at "
+        f"{REID_SIZE[0]}x{REID_SIZE[1]}: forward {ms:.3f} ms (median of 15 "
+        f"CUDA-event timings), {1e3 * len(crops) / ms:.0f} crops/s; host "
+        f"wall {wall:.2f} ms, {total:.3f} ms of kernels in {n_kernels} "
+        f"launches (torch.profiler, mean of 2), device busy "
+        f"{100 * total / wall:.0f}%; peak {peak:.2f} GiB; preprocess of "
+        f"{len(crops)} crops of mixed sizes {pre_ms:.2f} ms, the whole call "
+        f"(preprocess, forward, features to the host) {call_ms:.2f} ms")
+    log_kernel_kinds("reid", prof, 2, groups)
+
+    # card f32 (TF32 off) against the CPU's f32 on the same crops, and the
+    # card's bf16 against its f32
+    sub = crops[:REID_CHECK_CROPS]
+    f32 = FeatureExtractor(name, path, compute_dtype="float32")
+    cpu = FeatureExtractor(name, path, compute_dtype="float32",
+                           device="cpu")
+    got, ref = f32(sub), cpu(sub)
+    bf, full = ex(crops), f32(crops)
+    for label, v in (("bf16", bf), ("f32", full), ("cpu f32", ref)):
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{name}: {label} features not finite")
+    if not (bf.shape == full.shape == (len(crops), ex.model.feature_dim)
+            and ref.shape == got.shape == (len(sub), ex.model.feature_dim)):
+        raise AssertionError(f"{name}: shapes {bf.shape} {ref.shape}")
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    cos = (bf * full).sum(1) / np.maximum(
+        np.linalg.norm(bf, axis=1) * np.linalg.norm(full, axis=1), 1e-30)
+    log("reid", f"{name}: card f32 vs CPU f32 on {len(sub)} crops: max |d| "
+        f"{rel:.3g} of max |CPU| (bound {REID_F32_REL}); card bf16 vs f32 "
+        f"on {len(crops)}: least row cosine {cos.min():.5f} (bound "
+        f"{REID_COS_MIN}); features finite")
+    if not rel <= REID_F32_REL:
+        raise AssertionError(f"{name}: card f32 vs CPU {rel} > "
+                             f"{REID_F32_REL}")
+    if not cos.min() >= REID_COS_MIN:
+        raise AssertionError(f"{name}: bf16 vs f32 cosine {cos.min()} < "
+                             f"{REID_COS_MIN}")
+    del ex, f32, cpu
+    torch.cuda.empty_cache()
+    return {"params": n_params, "ms": ms, "crops_per_s": 1e3 * len(crops) / ms,
+            "wall_ms": wall, "kernel_ms": total, "busy": total / wall,
+            "kernel_launches": n_kernels, "by_kind": groups,
+            "peak_gib": peak, "preprocess_ms": pre_ms, "call_ms": call_ms,
+            "f32_rel": rel, "bf16_min_cos": float(cos.min())}
+
+
+def _mot_rows(path):
+    """A MOT file's rows as lists of fields (strings)."""
+    with open(path) as f:
+        return [ln.strip().split(",") for ln in f if ln.strip()]
+
+
+def _write_mot(path, rows):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.writelines(",".join(r) + "\n" for r in rows)
+
+
+def reid_single(tmp, tracks, models):
+    """single_video_reid's main on phase 7's MOT files with each class's
+    longest track cut in two (one row dropped, the second half renumbered):
+    the pairs scored, the cut pair's distance, and the output's rows equal
+    to the input's in all but the id column (module note)."""
+    from object_detection_tracking_tpu_torch.cli import single_video_reid \
+        as SV
+    from object_detection_tracking_tpu_torch.reid import single_video as sv
+
+    cut = {}
+    for cls, _ in REID_MODELS:
+        rows = _mot_rows(os.path.join(tracks, "actev", cls, "actev.txt"))
+        ids = [int(r[1]) for r in rows]
+        if rows:
+            tid = max(set(ids), key=ids.count)
+            mine = sorted((r for r in rows if int(r[1]) == tid),
+                          key=lambda r: int(r[0]))
+            mid = len(mine) // 2
+            new = max(ids) + 1
+            drop = mine[mid]
+            rows = [r for r in rows if r is not drop]
+            for r in mine[mid + 1:]:
+                r[1] = str(new)
+            cut[cls] = (tid, new, len(mine))
+        _write_mot(os.path.join(tmp, "tracks", "actev", cls, "actev.txt"),
+                   rows)
+    with open(os.path.join(tmp, "videos.lst"), "w") as f:
+        f.write("actev.mp4\n")
+    scored = []
+    real = sv.compute_candidate_distances
+
+    def candidate_distances(*a, **kw):
+        out = real(*a, **kw)
+        scored.append({q: [(e[0], e[-1]) for e in v] for q, v in out.items()})
+        return out
+    sv.compute_candidate_distances = candidate_distances
+    t0 = time.perf_counter()
+    try:
+        SV.main(["--video_dir", tmp, "--video_lst_file",
+                 os.path.join(tmp, "videos.lst"), "--track_dir",
+                 os.path.join(tmp, "tracks"), "--out_dir",
+                 os.path.join(tmp, "out"), "--person_reid_model",
+                 models["Person"], "--vehicle_reid_model",
+                 models["Vehicle"]])
+    finally:
+        sv.compute_candidate_distances = real
+    wall = time.perf_counter() - t0
+    pairs = [(q, g, d) for run in scored for q, v in run.items()
+             for g, d in v]
+    if not pairs:
+        raise AssertionError(f"single_video_reid scored no candidate pair "
+                             f"(cut tracks {cut})")
+    out = {"wall_s": wall, "pairs": len(pairs), "cut": {}}
+    for cls, _ in REID_MODELS:
+        src = _mot_rows(os.path.join(tmp, "tracks", "actev", cls,
+                                     "actev.txt"))
+        path = os.path.join(tmp, "out", "actev", cls, "actev.txt")
+        got = _mot_rows(path) if src else []
+
+        def key(r):
+            return tuple(float(v) for i, v in enumerate(r[:7]) if i != 1)
+        if sorted(map(key, got)) != sorted(map(key, src)):
+            raise AssertionError(f"single_video_reid {cls}: output rows "
+                                 "differ from the input's beyond the ids")
+        if cls in cut:
+            tid, new, n = cut[cls]
+            dist = [d for q, g, d in pairs if q == tid and g == new]
+            merged = new not in {int(r[1]) for r in got}
+            out["cut"][cls] = {"track": tid, "rows": n, "dist": dist,
+                               "merged": merged}
+            log("reid", f"single_video_reid {cls}: track {tid} ({n} rows) "
+                f"cut into {tid} and {new}; the pair's distance "
+                f"{dist} (reject at 200), merged back: {merged}")
+        else:
+            log("reid", f"single_video_reid {cls}: no tracks in phase 7's "
+                "MOT file")
+    log("reid", f"single_video_reid: {len(pairs)} candidate pairs scored, "
+        f"{wall:.2f} s wall; output rows equal to the input's but for ids")
+    return out
+
+
+def reid_multi(tmp, tracks, models):
+    """multi_video_reid's main on two cameras that share phase 7's video
+    and MOT files, with identical KRTD cameras (R = I, T = (0, 0, 5): the
+    cross-camera homography is the identity): the global ids must be one
+    to one, and every track with features must share its global id with
+    its copy, or with a track that the solver's cost cannot tell from the
+    copy: the synthetic objects are solid rectangles, so two tracks' crops
+    inside one rectangle are equal images with equal features, and both
+    cost 0 (module note)."""
+    import numpy as np
+    from object_detection_tracking_tpu_torch.cli import multi_video_reid \
+        as MV
+
+    cams = ("cam1", "cam2")
+    krtd = (f"1000 0 {ACTEV_W / 2}\n0 1000 {ACTEV_H / 2}\n0 0 1\n\n"
+            "1 0 0\n0 1 0\n0 0 1\n\n0 0 5\n\n0\n")
+    for cam in cams:
+        with open(os.path.join(tmp, f"{cam}.krtd"), "w") as f:
+            f.write(krtd)
+        for cls, _ in REID_MODELS:
+            _write_mot(os.path.join(tmp, "tracks", cam, cls, f"{cam}.txt"),
+                       _mot_rows(os.path.join(tracks, "actev", cls,
+                                              "actev.txt")))
+    with open(os.path.join(tmp, "cameras.json"), "w") as f:
+        json.dump({"reference_camera": "cam1", "videos": {
+            cam: {"video": f"{cam}.mp4", "camera_file": f"{cam}.krtd",
+                  "frame_offset": 0} for cam in cams}}, f)
+    feats = {}
+    real = MV.extract_track_features
+
+    def extract_track_features(track_data, video_path, ex, *a):
+        out = real(track_data, video_path, ex, *a)
+        feats[os.path.basename(video_path), ex.model_name] = out
+        return out
+    MV.extract_track_features = extract_track_features
+    t0 = time.perf_counter()
+    try:
+        MV.main(["--camera_config", os.path.join(tmp, "cameras.json"),
+                 "--video_dir", tmp, "--track_dir",
+                 os.path.join(tmp, "tracks"), "--out_dir",
+                 os.path.join(tmp, "out"), "--person_reid_model",
+                 models["Person"], "--vehicle_reid_model",
+                 models["Vehicle"]])
+    finally:
+        MV.extract_track_features = real
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall}
+    for cls, name in REID_MODELS:
+        f1, f2 = feats[("cam1.mp4", name)], feats[("cam2.mp4", name)]
+        gids = {}
+        for cam in cams:
+            path = os.path.join(tmp, "out", cam, cls, f"{cam}.txt")
+            gids[cam] = ({int(r[1]): int(r[7]) for r in _mot_rows(path)}
+                         if os.path.exists(path) else {})
+
+        def cost(t, u):
+            """The solver's cost of (t, u): compute_feature_dist's min
+            squared distance, clamped at 0, in the same float32 steps."""
+            a, b = f1[t], f2[u]
+            return float(np.maximum(
+                np.square(a).sum(1)[:, None] + np.square(b).sum(1)[None]
+                - 2.0 * a @ b.T, 0).min())
+        # each track's partner in the other camera: its global id's other
+        # member (one each way, or the ids are not one to one)
+        members = {}
+        for cam in cams:
+            for t, g in gids[cam].items():
+                members.setdefault(g, {}).setdefault(cam, []).append(t)
+        copies, ties, bad = [], [], []
+        for t in f1:
+            m = members.get(gids["cam1"].get(t, -1), {})
+            u = m.get("cam2", [None])
+            if (gids["cam1"].get(t, -1) == -1 or len(u) != 1
+                    or len(m.get("cam1", [])) != 1 or u[0] not in f2):
+                bad.append((t, m))
+            elif u[0] == t:
+                copies.append(t)
+            elif cost(t, u[0]) <= cost(t, t):
+                ties.append((t, u[0], cost(t, t)))
+            else:
+                bad.append((t, u[0], cost(t, t), cost(t, u[0])))
+        if bad or set(f1) != set(f2):
+            raise AssertionError(f"multi_video_reid {cls}: tracks not "
+                                 f"linked to their copies: {bad}")
+        copy = max((cost(t, t) for t in f1), default=None)
+        other = min((cost(t, u) for t in f1 for u in f2 if u != t),
+                    default=None)
+        out[cls] = {"tracks": len(f1), "global_ids": len(
+            set(gids["cam1"].values()) - {-1}), "copies": len(copies),
+            "ties": [t[:2] for t in ties], "max_copy_cost": copy,
+            "min_other_cost": other}
+        log("reid", f"multi_video_reid {cls}: {len(f1)} tracks with "
+            f"features in each camera, {out[cls]['global_ids']} global ids "
+            f"one to one; {len(copies)} linked to their copies, "
+            f"{len(ties)} to another track at a tie (the solver's cost to "
+            f"it no more than to the copy: {ties}); squared feature "
+            f"distance to the copy at most {copy}, to any other track at "
+            f"least {other} (clamped at 0, as compute_feature_dist does)")
+    log("reid", f"multi_video_reid: {wall:.2f} s wall")
+    return out
+
+
+def phase_reid(tmp, tracks):
+    """ReID at the CLIs' defaults (phase 15 of the module note): seeded
+    osnet_x1_0 and resnet101 checkpoints, each extractor timed and checked
+    at REID_BATCH crops, then single_video_reid and multi_video_reid
+    through their own main on phase 7's MOT files (``tracks``) and video,
+    the decode swapped for frames from memory and cv2 blocked; B1, B1b
+    and B2 must launch 0 times. Returns a summary dict."""
+    import torch
+    from object_detection_tracking_tpu_torch.cli import single_video_reid \
+        as SV
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+
+    counters = (RA.multilevel_roi_align_cuda,
+                RA.multilevel_roi_align_backward_cuda,
+                RS.fused_bottleneck_stage_cuda)
+    for fn in counters:
+        fn.launches = 0
+    models, res = {}, {}
+    crops = reid_crops(REID_BATCH, seed=4)
+    for i, (cls, name) in enumerate(REID_MODELS):
+        models[cls] = os.path.join(tmp, f"{name}.pth")
+        reid_weights(name, models[cls], seed=i)
+        res[name] = reid_extractor_run(name, models[cls], crops)
+    n_frames = FRAME_GAP * BATCH * N_BATCHES
+    opened = []
+
+    def open_video(path, decoder="auto"):
+        opened.append(os.path.basename(path))
+        return SyntheticVideo(n_frames, h=ACTEV_H, w=ACTEV_W)
+    real_open = SV.open_video
+    SV.open_video = open_video
+    try:
+        with cv2_blocked() as cv2_present:
+            log("reid", f"cv2 {'installed' if cv2_present else 'absent'} on "
+                "this machine; blocked for the CLIs; phase 7's video "
+                "re-rendered in memory for every decode")
+            os.makedirs(os.path.join(tmp, "single"))
+            os.makedirs(os.path.join(tmp, "multi"))
+            res["single_video_reid"] = reid_single(
+                os.path.join(tmp, "single"), tracks, models)
+            res["multi_video_reid"] = reid_multi(
+                os.path.join(tmp, "multi"), tracks, models)
+    finally:
+        SV.open_video = real_open
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    res.update(launches=launches, decodes=opened)
+    log("reid", f"kernel launches on the ReID path: {launches} (want 0: "
+        f"JAX's ReID reaches no pl.pallas_call); video decodes {opened}")
+    if any(launches.values()):
+        raise AssertionError(f"the ReID path launched {launches}")
+    return res
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2787,12 +3225,15 @@ def main():
     sass = build_kernels(native)
     kres = phase_kernels()
     sres = phase_stage()
+    kept = tempfile.TemporaryDirectory()    # phase 7's MOT files, for 15
     with tempfile.TemporaryDirectory() as tmp:
         model, x, main_res = phase_main_path(tmp)
         phase_profile(model, x)
         del model, x
         torch.cuda.empty_cache()
         model, unfused, x, actev = phase_actev(tmp)
+        shutil.copytree(os.path.join(tmp, "actev_tracks"),
+                        os.path.join(kept.name, "actev_tracks"))
     prof = phase_profile(model, x, "actev-profile", unfused=unfused)
     with tempfile.TemporaryDirectory() as tmp:
         tmot = phase_tmot(tmp, model, x, actev)
@@ -2812,6 +3253,9 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         track_quality = phase_track_quality(tmp)
+    torch.cuda.empty_cache()
+    with kept, tempfile.TemporaryDirectory() as tmp:
+        reid = phase_reid(tmp, os.path.join(kept.name, "actev_tracks"))
     tq_roi = (list(track_quality["roi"].values())
               + list(track_quality["track_roi"].values()))
     tq_launches = {t: track_quality[t]["launches"]
@@ -2946,6 +3390,7 @@ def main():
         "train": {k: v for k, v in train.items() if k not in ("roi", "bwd")},
         "effdet_train": effdet_train,
         "quality": quality,
+        "reid": reid,
         "card": card}
     print(json.dumps(kernels))
     print(card)

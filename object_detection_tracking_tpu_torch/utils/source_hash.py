@@ -23,6 +23,8 @@ QUALITY_TREES = ("models", "train", "ops", "tracking", "runtime", "csrc",
                  "data/training.py", "data/synthetic_np.py",
                  "utils/masks.py", "cli/main.py", "cli/quality_proof.py",
                  "cli/obj_detect_tracking.py", "cli/track_quality_proof.py")
+# directories inside those trees that no proof runs: the ReID nets
+NOT_HASHED = (os.path.join("models", "reid"),)
 
 
 def quality_tree_hash(package_root: str | None = None) -> str:
@@ -38,7 +40,9 @@ def quality_tree_hash(package_root: str | None = None) -> str:
         if os.path.isfile(path):
             files = [path]
         else:
-            for dirpath, _, names in os.walk(path):
+            for dirpath, dirs, names in os.walk(path):
+                dirs[:] = [d for d in dirs if os.path.relpath(os.path.join(
+                    dirpath, d), package_root) not in NOT_HASHED]
                 files += [os.path.join(dirpath, n) for n in names
                           if n.endswith((".py", ".cpp", ".cu"))]
         for f in sorted(files):

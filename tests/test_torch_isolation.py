@@ -4,8 +4,8 @@ solves an assignment and runs a training forward and backward with both
 imports the JAX package or reads one of its files, and its own copies of
 the JAX-free modules (config, class_ids, utils/masks, csrc/lapjv.cpp,
 data/training.py, data/synthetic.py, evaluation.py, evaluation_mot.py,
-tracking/tmot/, the automl name map of utils/effdet_weights.py) hold the
-same values as the originals."""
+tracking/tmot/, reid/, the automl name map of utils/effdet_weights.py)
+hold the same values as the originals."""
 
 import ast
 import dataclasses
@@ -87,6 +87,17 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "for _ in range(2):\n"
         "    out = t.update([((1., 2., 30., 40.), 0.9, np.ones(8))])\n"
         "assert [s.track_id for s in out] == [1], out\n"
+        "from object_detection_tracking_tpu_torch.cli import "
+        "multi_video_reid, reid_query, single_video_reid\n"
+        "from object_detection_tracking_tpu_torch.models.reid.extractor "
+        "import FeatureExtractor, build_reid_model\n"
+        "import tempfile, os\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'o.pth')\n"
+        "torch.save(build_reid_model('osnet_x0_25').state_dict(), p)\n"
+        "ex = FeatureExtractor('osnet_x0_25', p, image_size=(64, 32), "
+        "compute_dtype='float32', device='cpu')\n"
+        "f = ex([np.zeros((40, 20, 3), np.uint8)])\n"
+        "assert f.shape == (1, 512) and np.isfinite(f).all(), f\n"
         f"bad = [m for m, v in sys.modules.items() if v is not None and "
         f"(m == 'jax' or m.startswith('jax.') or m == '{JAX_PKG}' or "
         f"m.startswith('{JAX_PKG}.'))]\n"
@@ -140,7 +151,16 @@ def test_no_source_imports_or_reads_the_jax_package():
     assert {"chip_smoke.py",
             "object_detection_tracking_tpu_torch/cli/track_quality_proof.py",
             "object_detection_tracking_tpu_torch/tracking/tmot/"
-            "multitracker.py"} <= scanned
+            "multitracker.py",
+            "object_detection_tracking_tpu_torch/cli/single_video_reid.py",
+            "object_detection_tracking_tpu_torch/cli/multi_video_reid.py",
+            "object_detection_tracking_tpu_torch/cli/reid_query.py",
+            "object_detection_tracking_tpu_torch/models/reid/common.py",
+            "object_detection_tracking_tpu_torch/models/reid/osnet.py",
+            "object_detection_tracking_tpu_torch/models/reid/resnet_reid.py",
+            "object_detection_tracking_tpu_torch/models/reid/extractor.py",
+            "object_detection_tracking_tpu_torch/reid/multi_video.py"
+            } <= scanned
 
 
 def test_training_runs_with_jax_and_the_jax_package_blocked():
@@ -298,7 +318,10 @@ def test_lapjv_source_is_the_jax_solver():
                                   "evaluation.py", "evaluation_mot.py",
                                   "tracking/tmot/__init__.py",
                                   "tracking/tmot/matching.py",
-                                  "tracking/tmot/multitracker.py"])
+                                  "tracking/tmot/multitracker.py",
+                                  "reid/__init__.py", "reid/cameras.py",
+                                  "reid/single_video.py",
+                                  "reid/multi_video.py"])
 def test_jax_free_module_copies_equal_the_originals(path):
     """The port's copies of the JAX package's numpy/cv2 modules are the
     same source, byte for byte (their relative imports resolve to the

@@ -267,3 +267,52 @@ def effdet_params(jcfg, images, seed=0):
         feats = model.features(torch.from_numpy(images), bn=calibrating_bn)
         model.heads(feats, bn=calibrating_bn)
     return model, params_to_jax(model)
+
+
+# --------------------------------------------------------------------------
+# ReID
+
+
+def reid_net(name, seed=0, size=(64, 32), batch=4):
+    """The port's ReID net ``name`` (eval, float32, CPU) with torchreid's
+    initial weights from ``seed``, each residual branch's last BN gamma
+    (or OSBlockINin's IN gamma) scaled by 0.2, then every BatchNorm2d's
+    running statistics measured on a seeded batch of normal images of
+    ``size``. With the init's unit statistics a random OSNet's features
+    vary across inputs by ~1e-2 of their size: every crop would look
+    alike. The fc heads' BN1d keeps unit statistics: measured on a few
+    alike samples, its variances are ~1e-5 and it would blow float32
+    rounding up ~100x."""
+    import torch
+    from torch import nn
+
+    from object_detection_tracking_tpu_torch.models.reid import osnet, \
+        resnet_reid
+    from object_detection_tracking_tpu_torch.models.reid.extractor import \
+        build_reid_model
+    torch.manual_seed(seed)
+    net = build_reid_model(name)
+    bns = []
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, resnet_reid.Bottleneck):
+                m.bn3.weight.mul_(0.2)
+            elif isinstance(m, resnet_reid.BasicBlock):
+                m.bn2.weight.mul_(0.2)
+            elif isinstance(m, (osnet.OSBlock, osnet.OSBlockAIN)):
+                last = m.conv3.bn if m.conv3.bn is not None else m.IN
+                last.weight.mul_(0.2)
+            if isinstance(m, nn.BatchNorm2d):
+                m.momentum = None     # running stats = this batch's
+                m.reset_running_stats()
+                bns.append(m)
+        x = torch.randn(batch, 3, *size,
+                        generator=torch.Generator().manual_seed(seed + 1))
+        net.train()
+        for m in net.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.eval()
+        net(x)
+    for m in bns:
+        m.momentum = 0.1
+    return net.eval()
