@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's video detect-and-track path on one NVIDIA GPU
-and hold every hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch port's video detect-and-track path and its other entry
+points on one NVIDIA GPU and hold every hand-written kernel against its
+plain PyTorch version.
 
 Run from the root of the repository, on a machine with a CUDA GPU, nvcc
 (/usr/local/cuda) and PyTorch built for CUDA:
@@ -160,6 +161,27 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                them apart (crops inside one solid rectangle give equal
                features), to a track that costs no more; B1, B1b and B2
                launched 0 times (JAX's ReID reaches no Pallas kernel)
+ 16. imgs      the image-list CLI (cli/obj_detect_imgs.py detect_images,
+               ImageDataset batches padded to their largest image,
+               DatasetEnqueuer with 2 worker threads) at its defaults:
+               R101-FPN v4, --add_mask, bf16, backbone_impl="pallas", B=8,
+               short edge 1080 / max 1920, phase 7's weights, 4 batches of
+               seeded in-memory images (an ImageDataset subclass, no cv2)
+               alternating 1920x1080 and 1440x1080; a JSON file per image,
+               every output finite, B1 and B2 launched 3 times a batch;
+               images/s, the host wall a batch, the forward's busy share;
+               every launch of one forward held against its plain version,
+               B1 timed; extract_box_feat on that batch's final boxes: one
+               B1 launch, held against the plain version (timed) and
+               against the forward's mean-pooled fpn_box_feat; with cv2 on
+               the card, obj_detect_imgs.main on 16 PNGs written by cv2
+               (logged either way); then --use_gn --use_deformable
+               --add_relation_nn --use_att_frcnn_head (2 batches: B2 once
+               a batch, B1 3 times, no NaN with 1000 proposal slots, ROADMAP
+               C14; launches held against the plain versions; host wall and
+               kernel time beside the default's), --use_conv_frcnn_head (1
+               batch) and --is_efficientdet d0 (1 batch, B1 once, images
+               fitted into 512)
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -167,6 +189,7 @@ The script imports nothing of JAX: the port must run without it.
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -213,6 +236,8 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # rounds its coordinates exactly like the plain ops); only the order of
 # the bilinear and 2x2 sums differs, ~1e-6 on unit-normal features
 KERNEL_ATOL = 1e-4
+# torch.profiler: profiles taken before one without device time is given up
+PROFILE_TRIES = 4
 # training phase: full width, B=2, steps on one repeated batch, and the
 # timed steps after them
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_TIMED = 2, 8, 5
@@ -271,6 +296,14 @@ REID_F32_REL, REID_COS_MIN, REID_CHECK_CROPS = 1e-3, 0.99, 16
 # Sums ~1e-6 apart can swap two detections' ranks; only a swap across the
 # top-100 cut-off changes the set, at most a detection or two per image.
 MATCH_MIN = 0.98
+# image-list phase (16): the image CLI's sizes, mixed so that each batch
+# is padded to its largest image (1920x1080 beside 4:3 1440x1080), the
+# batches of the default path and of the options, the PNGs of the real
+# CLI run (when cv2 is on the card)
+IMG_SIZES = ((1080, 1920), (1080, 1440))
+IMG_BATCHES, IMG_OPT_BATCHES, IMG_PNGS = 4, 2, 16
+IMG_OPTIONS = ["--use_gn", "--use_deformable", "--add_relation_nn",
+               "--use_att_frcnn_head"]
 
 
 def stage_rel(dtype_name, n_blocks):
@@ -959,7 +992,6 @@ def phase_profile(model, x, phase="profile", unfused=None):
     forwards under torch.profiler (after one profiled warm-up, which
     absorbs the tracer's start-up). Returns a summary dict."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def host_wall(m):
         walls = []
@@ -972,12 +1004,7 @@ def phase_profile(model, x, phase="profile", unfused=None):
 
     wall = host_wall(model)
     wall_unfused = host_wall(unfused) if unfused is not None else None
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                model(x)
-            torch.cuda.synchronize()
+    prof = must_profile(lambda: model(x), 2, phase)
     unfused_msg = ("" if wall_unfused is None else
                    f"; unfused backbone {wall_unfused:.1f} ms")
     total, groups = kernel_kinds(prof, 2)
@@ -1116,26 +1143,81 @@ def stage_work(n, h, w, c_in, width, elem_bytes):
             kinds)
 
 
+def profiled(fn, runs, names=(), warmup=1):
+    """torch.profiler over ``runs`` calls of fn, after a profiled warm-up
+    of ``warmup`` calls, which absorbs the tracer's start-up. CUPTI now
+    and then hands
+    back a profile with no device activity, or without a kernel that ran:
+    the profile is taken again, up to PROFILE_TRIES times in all, until it
+    holds device time and, for each substring in ``names``, a kernel whose
+    name holds it. Returns the profile, or None if no try gave one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        for n in (warmup, runs):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        timed = [e.key for e in _cuda_events(prof)
+                 if e.self_device_time_total > 0]
+        if timed and all(any(name in k for k in timed) for name in names):
+            return prof
+    return None
+
+
+def must_profile(fn, runs, phase):
+    """``profiled`` with a warm-up of ``runs`` calls, for a time by kernel
+    kind, which CUDA events cannot give: raises if no try recorded device
+    time. A train step changes the weights that later checks read, so the
+    calls it makes on a first try are the same in every run."""
+    prof = profiled(fn, runs, warmup=runs)
+    if prof is None:
+        raise AssertionError(f"{phase}: torch.profiler recorded no device "
+                             f"time in {PROFILE_TRIES} tries")
+    return prof
+
+
+def event_ms(fn, runs):
+    """Device time per call of ``runs`` calls of fn queued back to back
+    between two CUDA events, after a warm-up call: the time the stream
+    takes for them, an upper bound on their kernels' own time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def device_ms(fn, names, runs=3, others=None):
     """Device time per call of fn's kernels whose names hold each of
-    ``names`` ({group: substring}): torch.profiler over `runs` calls, after
-    one profiled warm-up call. Only the kernels' own time: no host
-    preamble, no allocation. Returns {group: ms}; the names of the other
-    device activities (kernels, memsets, copies) with time are appended to
-    ``others`` when given."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for n in (1, runs):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+    ``names`` ({group: substring}): torch.profiler over `runs` calls
+    (``profiled``). Only the kernels' own time: no host preamble, no
+    allocation. Returns {group: ms}; the names of the other device
+    activities (kernels, memsets, copies) with time are appended to
+    ``others`` when given. Where no profile holds every group, one group
+    is timed with CUDA events instead (``event_ms``) and the log says so;
+    several groups cannot be told apart that way, and raise."""
+    prof = profiled(fn, runs, tuple(names.values()))
+    if prof is None:
+        if len(names) != 1:
+            raise AssertionError(f"torch.profiler recorded none of "
+                                 f"{sorted(names.values())} in "
+                                 f"{PROFILE_TRIES} tries")
+        ms = event_ms(fn, runs)
+        log("profile", f"torch.profiler recorded no {list(names.values())} "
+            f"kernel in {PROFILE_TRIES} tries: {ms:.4f} ms from CUDA events "
+            f"around {runs} calls back to back instead")
+        return dict.fromkeys(names, ms)
     out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in _cuda_events(prof):
         hit = False
         for group, name in names.items():
             if name in e.key:
@@ -2092,7 +2174,6 @@ def train_step_profile(trainer, tb, phase):
     device's kernel time over two steps under torch.profiler (after a
     profiled warm-up): the busy share of a step and its time by kind."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def step():
         trainer.backward(trainer.losses(*tb))
@@ -2105,12 +2186,7 @@ def train_step_profile(trainer, tb, phase):
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = sorted(walls)[2]
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                step()
-            torch.cuda.synchronize()
+    prof = must_profile(step, 2, phase)
     total, groups = kernel_kinds(prof, 2)
     n_kernels = sum(e.count for e in _cuda_events(prof)) // 2
     log(phase, f"one train step: {wall:.1f} ms host wall (median of 5, "
@@ -2797,7 +2873,6 @@ def reid_extractor_run(name, path, crops):
     card bf16 against card f32, row by row."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from object_detection_tracking_tpu_torch.models.reid.extractor import \
         FeatureExtractor
 
@@ -2823,12 +2898,7 @@ def reid_extractor_run(name, path, crops):
         wall = host_ms(forward, 5)
         pre_ms = host_ms(lambda: ex.preprocess(crops), 15)
         call_ms = host_ms(lambda: ex(crops), 5)
-        for _ in range(2):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    forward()
-                torch.cuda.synchronize()
+        prof = must_profile(forward, 2, "reid")
         total, groups = kernel_kinds(prof, 2)
         n_kernels = sum(e.count for e in _cuda_events(prof)) // 2
         torch.cuda.synchronize()
@@ -3078,6 +3148,340 @@ def reid_multi(tmp, tracks, models):
     return out
 
 
+def memory_images(n, batch_size, sizes=None, orig=None, seed=0):
+    """The image CLI's dataset over ``n`` seeded in-memory BGR images
+    (SyntheticVideo frames) already at their target ``sizes``, as read
+    from originals of ``orig`` sizes: an ``ImageDataset`` whose
+    get_sample makes the image instead of reading and resizing a file (no
+    cv2). The sizes alternate, so ImageDataset.collect_batch pads each
+    batch to its largest image."""
+    from object_detection_tracking_tpu_torch.data import ImageDataset
+    orig = orig or IMG_SIZES
+    sizes = sizes or orig
+
+    class MemoryImages(ImageDataset):
+        def get_sample(self, idx):
+            k = idx % len(sizes)
+            (h, w), (oh, ow) = sizes[k], orig[k]
+            return {"img": SyntheticVideo(1, seed=seed + idx, h=h,
+                                          w=w).read()[1],
+                    "img_name": self.img_paths[idx], "img_path": None,
+                    "scale": (h / oh + w / ow) / 2.0, "orig_hw": (oh, ow)}
+
+    ds = MemoryImages([f"mem{i:03d}.png" for i in range(n)], 0, 0,
+                      batch_size=batch_size)
+    ds.sizes = sizes
+    return ds
+
+
+class FiniteRunner:
+    """Wraps DetectionRunner.run: fails on any non-finite float output and
+    counts batches, images, valid detections and the time spent inside
+    the runner."""
+
+    def __init__(self, runner):
+        self.runner = runner
+        self.batches = self.images = self.dets = 0
+        self.runner_s = 0.0
+
+    def run(self, batches):
+        import numpy as np
+        it = self.runner.run(batches)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                host, meta = next(it)
+            except StopIteration:
+                return
+            self.runner_s += time.perf_counter() - t0
+            for k, v in host.items():
+                if v.dtype == np.float32 and not np.isfinite(v).all():
+                    raise AssertionError(f"{k} is not finite")
+            self.batches += 1
+            self.images += len(meta["img_names"])
+            self.dets += int(host["final_valid"].sum())
+            yield host, meta
+
+
+def imgs_args(out_dir, *extra):
+    """The image CLI's arguments at its defaults (R101-FPN v4, 1080/1920)
+    with B=8 and two worker threads, and ``extra`` flags."""
+    from object_detection_tracking_tpu_torch.cli import obj_detect_imgs
+    return obj_detect_imgs.get_args([
+        "--img_lst", "none", "--out_dir", out_dir, "--short_edge_size",
+        str(ACTEV_H), "--max_size", str(ACTEV_W), "--im_batch_size",
+        str(BATCH), "--num_cpu_worker", "2", "--prefetch", "3", *extra])
+
+
+def imgs_tree(cfg, seed=0):
+    """Phase 7's weights (actev_setup) for ``cfg``: each residual branch's
+    last BN gamma x0.2 and +1 on the Person and Vehicle logits; each
+    deformable offset conv redrawn so that its taps move by about a pixel
+    (the init's stddev of 1e-8 would leave them on the grid)."""
+    import numpy as np
+    from object_detection_tracking_tpu_torch.params import init_params
+    tree = init_params(cfg, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    for gname, group in tree["resnet"].items():
+        if gname.startswith("group"):
+            for blk in group.values():
+                blk["conv3"]["bn"]["gamma"] *= 0.2
+                if "conv2_offset" in blk:
+                    wo = blk["conv2_offset"]["W"]
+                    std = 0.5 / math.sqrt(wo.shape[0] * wo.shape[1]
+                                          * wo.shape[2])
+                    blk["conv2_offset"]["W"] = (
+                        rng.randn(*wo.shape) * std).astype(np.float32)
+    bias = tree["fastrcnn"]["outputs"]["class"]["b"]
+    for name in ("Person", "Vehicle"):
+        bias[cfg.classname2id[name]] += 1.0
+    return tree
+
+
+def drive_imgs(phase, args, cfg, model, dataset, out_dir, roi_per_batch,
+               stage_per_batch):
+    """``dataset`` through the image CLI's detect_images with ``model``,
+    the launch counts set to 0 just before and read just after; fails
+    unless every image has its JSON file, every output is finite and B1
+    and B2 launched ``roi_per_batch`` and ``stage_per_batch`` times a
+    batch. Returns a summary dict."""
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_imgs
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.runtime import DetectionRunner
+
+    runner = FiniteRunner(DetectionRunner(model))
+    RA.multilevel_roi_align_cuda.launches = 0
+    RS.fused_bottleneck_stage_cuda.launches = 0
+    t0 = time.perf_counter()
+    n = obj_detect_imgs.detect_images(args, cfg, runner, dataset, out_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    roi_n = RA.multilevel_roi_align_cuda.launches
+    stage_n = RS.fused_bottleneck_stage_cuda.launches
+    files = sorted(os.listdir(out_dir))
+    want = sorted(f"mem{i:03d}.json" for i in range(dataset.num_samples))
+    if n != dataset.num_samples or files != want:
+        raise AssertionError(f"{phase}: {n} images, {len(files)} JSON files"
+                             f" for {dataset.num_samples} images")
+    nb = runner.batches
+    if roi_n != roi_per_batch * nb or stage_n != stage_per_batch * nb:
+        raise AssertionError(
+            f"{phase}: {nb} batches launched roi_align {roi_n} and the "
+            f"bottleneck stage {stage_n} times, want {roi_per_batch} and "
+            f"{stage_per_batch} per batch")
+    boxes = 0
+    for name in files:
+        with open(os.path.join(out_dir, name)) as f:
+            for det in json.load(f):
+                if not all(math.isfinite(v)
+                           for v in det["bbox"] + [det["score"]]):
+                    raise AssertionError(f"{phase}: {name}: {det}")
+                boxes += 1
+    res = {"images": n, "batches": nb, "wall_s": wall,
+           "images_per_s": n / wall, "ms_per_batch": 1e3 * wall / nb,
+           "runner_ms_per_batch": 1e3 * runner.runner_s / nb,
+           "roi_launches": roi_n, "stage_launches": stage_n,
+           "dets_per_image": runner.dets / n, "json_dets": boxes}
+    log(phase, f"{n} images ({' and '.join(f'{w}x{h}' for h, w in dataset.sizes)}"
+        f" alternating) in {nb} batches of {dataset.batch_size} through "
+        f"detect_images (DatasetEnqueuer, 2 worker threads): {wall:.3f} s "
+        f"wall, {res['images_per_s']:.2f} images/s, "
+        f"{res['ms_per_batch']:.1f} ms host wall a batch "
+        f"({res['runner_ms_per_batch']:.1f} in DetectionRunner.run), "
+        f"{res['dets_per_image']:.1f} detections/image, {boxes} written, "
+        f"all finite; launches: roi_align {roi_n}, bottleneck stage "
+        f"{stage_n} ({roi_per_batch} and {stage_per_batch} per batch)")
+    return res
+
+
+def first_batch(dataset):
+    """The dataset's first batch as the CLI pads it, on the card."""
+    import torch
+    batch = dataset.collect_batch([dataset.get_sample(i)
+                                   for i in range(dataset.batch_size)])
+    return torch.from_numpy(batch["imgs"]).cuda()
+
+
+def phase_imgs(tmp):
+    """The image-list CLI (phase 16 of the module note)."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_imgs
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.params import save_npz_tree
+
+    device = torch.device("cuda")
+    res = {}
+    # (a) the image CLI's default path
+    args = imgs_args(os.path.join(tmp, "json"), "--add_mask")
+    cfg = dataclasses.replace(obj_detect_imgs.build_config(args, device),
+                              backbone_impl="pallas")
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking
+    actev_cfg = dataclasses.replace(obj_detect_tracking.build_config(
+        actev_args(tmp, tmp), device), backbone_impl="pallas")
+    if dataclasses.asdict(cfg) != dataclasses.asdict(actev_cfg):
+        raise AssertionError("the image CLI's default configuration is not "
+                             "the video CLI's (phase 7)")
+    tree = imgs_tree(cfg)
+    model = build_model(cfg, tree, device)
+    ds = memory_images(IMG_BATCHES * BATCH, BATCH)
+    t0 = time.perf_counter()
+    x = first_batch(ds)
+    make_ms = 1e3 * (time.perf_counter() - t0)
+    model(x)                                     # cuDNN / allocator warm-up
+    torch.cuda.synchronize()
+    res["default"] = drive_imgs("imgs", args, cfg, model, ds, args.out_dir,
+                                3, 3)
+    res["default"]["make_batch_ms"] = make_ms
+    log("imgs", f"the data plane alone: {make_ms:.1f} ms of host wall to "
+        f"make one batch in this thread ({BATCH} get_sample calls, "
+        "collect_batch's padding, the H2D copy)")
+    with torch.inference_mode():
+        out = model(x)
+    res["check"] = main_path_kernel_check(model, x, out, "imgs", timed=True)
+    res["profile"] = phase_profile(model, x, "imgs-profile")
+
+    # (c) extract_box_feat on (a)'s model, on x and x's own final boxes
+    boxes = out["final_boxes"].contiguous()
+    RA.multilevel_roi_align_cuda.launches = 0
+    feat = model.extract_box_feat(x, boxes)
+    torch.cuda.synchronize()
+    n_ebf = RA.multilevel_roi_align_cuda.launches
+    if n_ebf != 1:
+        raise AssertionError(f"extract_box_feat launched roi_align {n_ebf} "
+                             "times, want 1")
+    hp, wp, _, _ = model._static_geometry(*x.shape[1:3])
+    with torch.inference_mode():
+        feats = list(model.backbone(model.preprocess(x, hp, wp))[:4])
+    ebf = check_roi_launch("imgs", "extract_box_feat N=%d P=7"
+                           % boxes.shape[1], feats,
+                           cfg.anchor_strides[:4], boxes, None, 7,
+                           timed=True)
+    del feats
+    valid = out["final_valid"]
+    ref = out["fpn_box_feat"].mean(dim=(2, 3))
+    err = (feat - ref)[valid].abs().max().item()
+    bound = KERNEL_ATOL * max(1.0, ref[valid].abs().max().item())
+    if not err <= bound:
+        raise AssertionError(f"extract_box_feat vs the forward's box "
+                             f"features: {err} > {bound}")
+    ebf.update(launches=n_ebf, vs_forward=err)
+    res["extract_box_feat"] = ebf
+    log("imgs", f"extract_box_feat on the batch's own {int(valid.sum())} "
+        f"valid final boxes of {boxes.shape[0] * boxes.shape[1]}: 1 "
+        f"roi_align launch, max |extract - forward's mean-pooled "
+        f"fpn_box_feat| {err:.3g} over the valid slots (bound {bound:.3g})")
+
+    # (d) the real CLI on PNGs, when cv2 is on the card
+    if importlib.util.find_spec("cv2") is None:
+        res["cli"] = "cv2 absent"
+        log("imgs", "cv2 is not importable on this machine: the CLI's "
+            "main on PNG files did not run (detect_images ran above)")
+    else:
+        import cv2
+        src = memory_images(IMG_PNGS, BATCH)
+        paths = []
+        for i in range(IMG_PNGS):
+            path = os.path.join(tmp, f"png{i:02d}.png")
+            cv2.imwrite(path, src.get_sample(i)["img"])
+            paths.append(path)
+        with open(os.path.join(tmp, "imgs.lst"), "w") as f:
+            f.write("\n".join(paths) + "\n")
+        save_npz_tree(os.path.join(tmp, "r101.npz"), tree)
+        out_dir = os.path.join(tmp, "cli_json")
+        t0 = time.perf_counter()
+        n = obj_detect_imgs.main([
+            "--img_lst", os.path.join(tmp, "imgs.lst"), "--out_dir",
+            out_dir, "--model_path", os.path.join(tmp, "r101.npz"),
+            "--add_mask", "--im_batch_size", str(BATCH), "--num_cpu_worker",
+            "2", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(out_dir))
+        if n != IMG_PNGS or files != [f"png{i:02d}.json"
+                                      for i in range(IMG_PNGS)]:
+            raise AssertionError(f"obj_detect_imgs.main: {n} images, "
+                                 f"{len(files)} JSON files")
+        res["cli"] = {"images": n, "wall_s": wall}
+        log("imgs", f"cv2 present: obj_detect_imgs.main on {n} PNGs "
+            f"(cv2.imread, --model_path npz, R101 built anew): {wall:.2f} s "
+            "wall, a JSON file per image")
+    del model, out, x, feat, ref
+    torch.cuda.empty_cache()
+
+    # (b) the options at full width
+    args = imgs_args(os.path.join(tmp, "json_opt"), "--add_mask",
+                     *IMG_OPTIONS)
+    cfg = dataclasses.replace(obj_detect_imgs.build_config(args, device),
+                              backbone_impl="pallas")
+    if not (cfg.use_gn and cfg.use_deformable and cfg.add_relation_nn
+            and cfg.use_att_frcnn_head):
+        raise AssertionError(f"options not in the configuration: {cfg}")
+    model = build_model(cfg, imgs_tree(cfg), device)
+    ds = memory_images(IMG_OPT_BATCHES * BATCH, BATCH, seed=100)
+    x = first_batch(ds)
+    model(x)
+    torch.cuda.synchronize()
+    log("imgs-options", f"{' '.join(IMG_OPTIONS)}: fused groups "
+        f"{model.resnet.fused_groups} (deformable groups run unfused)")
+    res["options"] = drive_imgs("imgs-options", args, cfg, model, ds,
+                                args.out_dir, 3, 1)
+    with torch.inference_mode():
+        out = model(x)
+    n_pad = int((~out["final_valid"]).sum())
+    for k, v in out.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"options forward: {k} has NaN or inf")
+    res["options_check"] = main_path_kernel_check(model, x, out,
+                                                  "imgs-options")
+    res["options_profile"] = phase_profile(model, x, "imgs-options-profile")
+    log("imgs-options", f"every output finite with "
+        f"{cfg.rpn_test_post_nms_topk} proposal slots an image "
+        f"({n_pad} of {out['final_valid'].numel()} final slots invalid; "
+        f"ROADMAP C14); forward host wall "
+        f"{res['options_profile']['wall_ms']:.1f} ms against "
+        f"{res['profile']['wall_ms']:.1f} ms for (a), kernel time "
+        f"{res['options_profile']['kernel_ms']:.1f} against "
+        f"{res['profile']['kernel_ms']:.1f} ms")
+    del model, out, x
+    torch.cuda.empty_cache()
+
+    # the conv box head, one batch
+    args = imgs_args(os.path.join(tmp, "json_conv"), "--add_mask",
+                     "--use_conv_frcnn_head")
+    cfg = dataclasses.replace(obj_detect_imgs.build_config(args, device),
+                              backbone_impl="pallas")
+    model = build_model(cfg, imgs_tree(cfg), device)
+    ds = memory_images(BATCH, BATCH, seed=200)
+    model(first_batch(ds))                       # warm-up
+    res["conv_head"] = drive_imgs("imgs-conv-head", args, cfg, model, ds,
+                                  args.out_dir, 3, 3)
+    del model
+    torch.cuda.empty_cache()
+
+    # EfficientDet-d0, one batch, fitted into its 512 input
+    args = imgs_args(os.path.join(tmp, "json_effdet"), "--is_efficientdet",
+                     "--efficientdet_modelname", "efficientdet-d0",
+                     "--use_partial_classes")
+    cfg = obj_detect_imgs.build_config(args, device)
+    _, ecfg, etree = effdet_setup(tmp, device, "efficientdet-d0", EFFDET_H,
+                                  EFFDET_W)
+    if dataclasses.asdict(cfg) != dataclasses.asdict(ecfg):
+        raise AssertionError("the image CLI's EfficientDet configuration is "
+                             "not the video CLI's (phase 10)")
+    model = build_model(cfg, etree, device, "efficientdet")
+    fitted = tuple((round(h * 512 / max(h, w)), round(w * 512 / max(h, w)))
+                   for h, w in IMG_SIZES)
+    ds = memory_images(BATCH, BATCH, sizes=fitted, seed=300)
+    model(first_batch(ds))                       # warm-up
+    res["effdet"] = drive_imgs("imgs-effdet", args, cfg, model, ds,
+                               args.out_dir, 1, 0)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_reid(tmp, tracks):
     """ReID at the CLIs' defaults (phase 15 of the module note): seeded
     osnet_x1_0 and resnet101 checkpoints, each extractor timed and checked
@@ -3256,6 +3660,12 @@ def main():
     torch.cuda.empty_cache()
     with kept, tempfile.TemporaryDirectory() as tmp:
         reid = phase_reid(tmp, os.path.join(kept.name, "actev_tracks"))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        imgs = phase_imgs(tmp)
+    imgs_roi = (list(imgs["check"]["roi"].values())
+                + list(imgs["options_check"]["roi"].values())
+                + [imgs["extract_box_feat"]])
     tq_roi = (list(track_quality["roi"].values())
               + list(track_quality["track_roi"].values()))
     tq_launches = {t: track_quality[t]["launches"]
@@ -3268,13 +3678,16 @@ def main():
               + [r["err"] for r in train["roi"].values()]
               + [r["err"] for r in quality["r18-mask"]["roi"].values()]
               + [r["err"] for r in tmot["check"]["roi"].values()]
-              + [r["err"] for r in tq_roi])
+              + [r["err"] for r in tq_roi]
+              + [r["err"] for r in imgs_roi])
     bwd = train["bwd"]
     _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
     _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
     bf = [sres[(name, "bfloat16")] for name, *_ in STAGES]
     stage_err = max([r["err"] for r in sres.values()]
-                    + actev["check"]["stage"] + tmot["check"]["stage"])
+                    + actev["check"]["stage"] + tmot["check"]["stage"]
+                    + imgs["check"]["stage"]
+                    + imgs["options_check"]["stage"])
     roi_device = sum(r["device_ms"] for r in roi.values())
     roi_bound = sum(r["bound_ms"] for r in roi.values())
     kernels = {"kernels": [{
@@ -3297,6 +3710,12 @@ def main():
         "track_quality_per_launch": {
             "train_step": track_quality["roi"],
             "tracking_forward": track_quality["track_roi"]},
+        "imgs_launches": imgs["default"]["roi_launches"],
+        "imgs_per_launch": imgs["check"]["roi"],
+        "imgs_options_launches": imgs["options"]["roi_launches"],
+        "imgs_conv_head_launches": imgs["conv_head"]["roi_launches"],
+        "imgs_effdet_launches": imgs["effdet"]["roi_launches"],
+        "extract_box_feat": imgs["extract_box_feat"],
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -3316,7 +3735,12 @@ def main():
                   "forward (B=8, 160 px, f32; track_quality_per_launch); "
                   "tmot_launches: phase 13's 8 batches; "
                   "track_quality_launches: phase 14's detector training "
-                  "and eval and its tracking passes, by tracker"},
+                  "and eval and its tracking passes, by tracker; imgs_*: "
+                  "phase 16's image CLI (default path, timed on one "
+                  "forward's own launches; the options; the conv head; "
+                  "EfficientDet-d0), extract_box_feat: its one launch on "
+                  "a batch's final boxes (N=100 P=7, no validity mask), "
+                  "timed"},
         {"name": "roi_align_backward", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"
@@ -3355,6 +3779,9 @@ def main():
                      "resnet_stage_pallas.py:155",
          "launches": actev["stage_launches"], "max_abs_err": stage_err,
          "tmot_launches": tmot["stage_launches"],
+         "imgs_launches": imgs["default"]["stage_launches"],
+         "imgs_options_launches": imgs["options"]["stage_launches"],
+         "imgs_conv_head_launches": imgs["conv_head"]["stage_launches"],
          "ms": sum(r["ms"] for r in bf),
          "plain_ms": sum(r["plain_ms"] for r in bf),
          "bound_ms": sum(r["bound_ms"] for r in bf),
@@ -3391,6 +3818,8 @@ def main():
         "effdet_train": effdet_train,
         "quality": quality,
         "reid": reid,
+        "imgs": {k: v for k, v in imgs.items()
+                 if k not in ("check", "options_check", "extract_box_feat")},
         "card": card}
     print(json.dumps(kernels))
     print(card)

@@ -7,8 +7,11 @@ JDE tracker) per tracked class on the host;
 writes per-frame detection JSON and MOT-format track txt in the JAX CLI's
 formats. Same flags as the JAX CLI, plus ``--device`` (default cuda; with
 no GPU it raises unless ``--device cpu`` is given). ``--compute_dtype``
-defaults to bfloat16 on the GPU and float32 on the CPU. Flags of parts not
-ported yet raise NotImplementedError naming their ROADMAP item.
+defaults to bfloat16 on the GPU and float32 on the CPU. The architecture
+toggles (``ARCH_TOGGLES``: --use_gn, --use_deformable,
+--use_conv_frcnn_head, --use_att_frcnn_head, --add_relation_nn and the
+rest) layer over --version as in JAX. Flags of parts not ported yet raise
+NotImplementedError naming their ROADMAP item.
 
 Example:
   python -m object_detection_tracking_tpu_torch.cli.obj_detect_tracking \
@@ -48,12 +51,14 @@ from ..tracking.tmot import JDETracker
 from ..utils.masks import fill_full_mask, rle_encode
 
 # flags of parts not ported yet -> ROADMAP item that ports them
-_NOT_PORTED = {
-    "use_deformable": "A8",
-    "use_gn": "A8", "add_relation_nn": "A8", "use_att_frcnn_head": "A8",
-    "use_conv_frcnn_head": "A8", "use_lijun_video_loader": "A12",
-    "log_time_and_gpu": "A12",
-}
+_NOT_PORTED = {"use_lijun_video_loader": "A12", "log_time_and_gpu": "A12"}
+
+# the architecture toggles layered over --version (DetectorConfig fields),
+# the same in this CLI and in cli/obj_detect_imgs.py (JAX
+# obj_detect_tracking.py:165-168, obj_detect_imgs.py:51-55)
+ARCH_TOGGLES = ("use_dilations", "use_deformable", "use_se", "use_resnext",
+                "use_gn", "use_frcnn_class_agnostic", "use_att_frcnn_head",
+                "use_conv_frcnn_head", "add_relation_nn")
 
 
 def get_args(argv=None):
@@ -83,21 +88,8 @@ def get_args(argv=None):
     parser.add_argument("--resnet152", action="store_true")
     # explicit architecture toggles on top of --version presets
     # (ref obj_detect_tracking.py:134-228); None = keep preset value
-    parser.add_argument("--use_dilations", action="store_true",
-                        default=None)
-    parser.add_argument("--use_deformable", action="store_true",
-                        default=None)
-    parser.add_argument("--use_se", action="store_true", default=None)
-    parser.add_argument("--use_resnext", action="store_true", default=None)
-    parser.add_argument("--use_gn", action="store_true", default=None)
-    parser.add_argument("--use_frcnn_class_agnostic", action="store_true",
-                        default=None)
-    parser.add_argument("--use_att_frcnn_head", action="store_true",
-                        default=None)
-    parser.add_argument("--use_conv_frcnn_head", action="store_true",
-                        default=None)
-    parser.add_argument("--add_relation_nn", action="store_true",
-                        default=None)
+    for flag in ARCH_TOGGLES:
+        parser.add_argument("--" + flag, action="store_true", default=None)
     parser.add_argument("--rpn_test_post_nms_topk", type=int, default=None)
     parser.add_argument("--max_size", type=int, default=1920)
     parser.add_argument("--short_edge_size", type=int, default=1080)
@@ -196,8 +188,7 @@ def build_config(args, device: torch.device) -> DetectorConfig:
             152 if args.resnet152 else (
                 18 if args.resnet18 else (34 if args.resnet34 else 101))),
     )
-    for f in ("use_dilations", "use_se", "use_resnext",
-              "use_frcnn_class_agnostic", "rpn_test_post_nms_topk"):
+    for f in ARCH_TOGGLES + ("rpn_test_post_nms_topk",):
         v = getattr(args, f, None)
         if v is not None:
             overrides[f] = v
@@ -435,9 +426,9 @@ def load_tree(path: str, model, model_name: str):
     return load_npz_tree(path, model_name)
 
 
-def build_runner(args, cfg, device: torch.device) -> DetectionRunner:
-    """The detector on ``device`` with --model_path weights (or seeded
-    random ones), wrapped in the pipelined runner."""
+def load_model(args, cfg, device: torch.device):
+    """The detector on ``device`` in eval mode, with --model_path weights
+    (or seeded random ones)."""
     model_name = "efficientdet" if args.is_efficientdet else "faster_rcnn"
     model = get_model(cfg, model_name)
     if args.model_path:
@@ -447,8 +438,13 @@ def build_runner(args, cfg, device: torch.device) -> DetectionRunner:
               file=sys.stderr)
         tree = init_params(cfg, seed=0, model_name=model_name)
     params_from_jax(tree, model)
-    model.to(device).eval()
-    return DetectionRunner(model, emb_agg=args.emb_agg_method,
+    return model.to(device).eval()
+
+
+def build_runner(args, cfg, device: torch.device) -> DetectionRunner:
+    """``load_model``'s detector wrapped in the pipelined runner."""
+    return DetectionRunner(load_model(args, cfg, device),
+                           emb_agg=args.emb_agg_method,
                            ship_full_feat=args.get_box_feat)
 
 

@@ -1,11 +1,18 @@
-"""Decode/resize enqueuer feeding a bounded queue (port of
-object_detection_tracking_tpu/data/enqueuer.py:41-140; reference
-VideoEnqueuer, enqueuer_thread.py:168-317).
+"""Prefetch enqueuers feeding bounded queues (port of
+object_detection_tracking_tpu/data/enqueuer.py:41-223; reference
+VideoEnqueuer, enqueuer_thread.py:168-317, and DatasetEnqueuer,
+enqueuer_thread.py:19-154).
 
-A host thread reads frames, skips by frame gap, resizes to (short edge,
-max size) and stacks batches of contiguous uint8 arrays ready for one
-host->device copy. cv2 is needed only for a resize or the I420 conversion:
-frames already at the target size in "bgr" format never touch it.
+``VideoEnqueuer``: a host thread reads frames, skips by frame gap, resizes
+to (short edge, max size) and stacks batches of contiguous uint8 arrays
+ready for one host->device copy. cv2 is needed only for a resize or the
+I420 conversion: frames already at the target size in "bgr" format never
+touch it.
+
+``DatasetEnqueuer``: ordered prefetch over an indexable dataset (the image
+CLI's ``ImageDataset``), its samples read by worker threads or, with
+``use_process``, by spawned worker processes, batched by the dataset's
+``collect_batch``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,19 @@ from ..ops.boxes import get_new_hw
 from .video import VideoReader
 
 _SENTINEL = object()
+
+# the dataset of a spawned worker process (reference enqueuer.py's
+# keras-derived shared-dataset globals, enqueuer.py:235-280)
+_WORKER_DATASET = None
+
+
+def _init_worker(dataset):
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_get_sample(i):
+    return _WORKER_DATASET.get_sample(i)
 
 
 class VideoEnqueuer:
@@ -117,6 +137,89 @@ class VideoEnqueuer:
             if item is _SENTINEL:
                 return
             yield item
+
+    def stop(self):
+        self._stop.set()
+        try:
+            while True:
+                self.queue.get_nowait()
+        except queue.Empty:
+            pass
+
+
+class DatasetEnqueuer:
+    """Ordered multi-worker prefetch over an indexable dataset (JAX
+    data/enqueuer.py:143-223).
+
+    dataset must provide ``num_samples``, ``get_sample(i)`` and
+    ``collect_batch(samples)``; ``get()`` yields its batches of
+    ``dataset.batch_size`` in order, the last one possibly short."""
+
+    def __init__(self, dataset, prefetch: int = 5, num_workers: int = 1,
+                 start: bool = True, use_process: bool = False):
+        self.dataset = dataset
+        self.batch_size = getattr(dataset, "batch_size", 1)
+        self.queue: "queue.Queue" = queue.Queue(
+            maxsize=prefetch * max(self.batch_size, 1))
+        self._stop = threading.Event()
+        self.num_workers = max(1, num_workers)
+        # worker processes instead of threads (the reference's process
+        # pool); threads are the default: cv2 releases the GIL, and the
+        # dataset is shared without pickling
+        self.use_process = use_process
+        self.threads: List[threading.Thread] = []
+        if start:
+            self.start()
+
+    def start(self):
+        t = threading.Thread(target=self._run, daemon=True)
+        t.start()
+        self.threads.append(t)
+
+    def _run(self):
+        try:
+            n = self.dataset.num_samples
+            if self.num_workers > 1 and self.use_process:
+                import multiprocessing
+                # spawn, not fork: this process has live torch (and CUDA)
+                # threads, and forking a threaded process can deadlock in
+                # the child. Each worker re-imports the dataset's module;
+                # the dataset ships pickled through initargs.
+                ctx = multiprocessing.get_context("spawn")
+                with ctx.Pool(self.num_workers, initializer=_init_worker,
+                              initargs=(self.dataset,)) as pool:
+                    for sample in pool.imap(_worker_get_sample, range(n)):
+                        if self._stop.is_set():
+                            break
+                        self.queue.put(sample)
+            elif self.num_workers > 1:
+                from multiprocessing.pool import ThreadPool
+                pool = ThreadPool(self.num_workers)
+                for sample in pool.imap(self.dataset.get_sample, range(n)):
+                    if self._stop.is_set():
+                        break
+                    self.queue.put(sample)
+                pool.terminate()
+            else:
+                for i in range(n):
+                    if self._stop.is_set():
+                        break
+                    self.queue.put(self.dataset.get_sample(i))
+        finally:
+            self.queue.put(_SENTINEL)
+
+    def get(self):
+        batch = []
+        while True:
+            item = self.queue.get()
+            if item is _SENTINEL:
+                break
+            batch.append(item)
+            if len(batch) == self.batch_size:
+                yield self.dataset.collect_batch(batch)
+                batch = []
+        if batch:
+            yield self.dataset.collect_batch(batch)
 
     def stop(self):
         self._stop.set()

@@ -30,6 +30,17 @@ over the batch, as JAX's ``vmap`` and ``.mean()`` do. The random subsamples
 take uniform draws from a ``torch.Generator`` or, given ``noise``, those
 draws (train/targets.py).
 
+The architecture options of the inference CLIs are the JAX ones:
+``use_gn`` (FPN GroupNorm), ``use_deformable`` (deformable conv2 in the
+last blocks of c3-c5, whose groups then run unfused),
+``use_conv_frcnn_head``, ``use_att_frcnn_head`` and ``add_relation_nn``
+(models/heads.py). The relation residuals see each image's proposals with
+their validity, so padded slots stay out of the attention (ROADMAP C14).
+``use_small_object_head`` is not ported (ROADMAP A8b) and raises.
+
+``extract_box_feat`` is the feature extractor alone: the backbone and one
+ROIAlign on the caller's boxes, mean-pooled.
+
 Outputs per image (R = config.result_per_im): final_boxes [R, 4] x1y1x2y2,
 final_labels [R] int32, final_probs [R], final_valid [R] bool,
 pooled_box_feat [R, 256] and fpn_box_feat [R, 7, 7, 256]; with
@@ -83,14 +94,9 @@ class FasterRCNNFPN(nn.Module):
         cfg = config
         self.config = cfg
         self.keep_full_box_feat = keep_full_box_feat
-        for flag, item in (("use_gn", "A8"),
-                           ("use_small_object_head", "A8"),
-                           ("add_relation_nn", "A8"),
-                           ("use_att_frcnn_head", "A8"),
-                           ("use_conv_frcnn_head", "A8")):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag} is not ported yet (ROADMAP {item})")
+        if cfg.use_small_object_head:
+            raise NotImplementedError(
+                "use_small_object_head is not ported yet (ROADMAP A8b)")
         if cfg.roi_align_impl not in ("pallas", "xla"):
             raise ValueError(f"unknown roi_align_impl {cfg.roi_align_impl!r}")
         if cfg.backbone_impl not in ("pallas", "xla"):
@@ -102,11 +108,16 @@ class FasterRCNNFPN(nn.Module):
             use_dilations=cfg.use_dilations, use_se=cfg.use_se,
             use_resnext=cfg.use_resnext, use_deformable=cfg.use_deformable,
             fused_stages=cfg.backbone_impl == "pallas" and not cfg.is_train)
-        self.fpn = FPN(self.c_channels, cfg.fpn_num_channel)
+        self.fpn = FPN(self.c_channels, cfg.fpn_num_channel,
+                       use_gn=cfg.use_gn)
         self.rpn = RPNHead(cfg.fpn_num_channel, cfg.num_anchors_per_cell)
         self.fastrcnn = FastRCNN2FCHead(
             cfg.num_class, cfg.fpn_num_channel, 7, cfg.fpn_frcnn_fc_head_dim,
-            cfg.use_frcnn_class_agnostic)
+            cfg.use_frcnn_class_agnostic,
+            add_relation_nn=cfg.add_relation_nn,
+            use_att_head=cfg.use_att_frcnn_head,
+            use_conv_head=cfg.use_conv_frcnn_head,
+            conv_dim=cfg.conv_frcnn_head_dim)
         self.maskrcnn = (MaskRCNNUp4ConvHead(cfg.num_class,
                                              cfg.fpn_num_channel,
                                              cfg.mrcnn_head_dim)
@@ -130,7 +141,7 @@ class FasterRCNNFPN(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.fastrcnn.fc6.weight.device
+        return self.fastrcnn.outputs["class"].weight.device
 
     # ------------------------------------------------------------------
     # static geometry
@@ -288,12 +299,16 @@ class FasterRCNNFPN(nn.Module):
               else multilevel_roi_align)
         return fn(feats, boxes, strides, pool, valid=valid)
 
-    def _apply_head(self, roi_feats: torch.Tensor):
+    def _apply_head(self, roi_feats: torch.Tensor,
+                    boxes: Optional[torch.Tensor] = None,
+                    valid: Optional[torch.Tensor] = None):
         """Box head over [B, K, 7, 7, C] features as one flat batch (JAX
-        faster_rcnn.py:492-514)."""
+        faster_rcnn.py:492-514); with ``add_relation_nn`` the relation
+        residuals need the slots' ``boxes`` [B, K, 4] and attend within
+        each image, over its ``valid`` slots (ROADMAP C14)."""
         b, k = roi_feats.shape[:2]
         roi_flat = roi_feats.reshape(b * k, 7, 7, -1).to(self.compute_dtype)
-        label_out, box_out = self.fastrcnn(roi_flat)
+        label_out, box_out = self.fastrcnn(roi_flat, boxes, valid)
         return (label_out.reshape(b, k, -1).float(),
                 box_out.reshape(b, k, -1, 4).float())
 
@@ -370,7 +385,8 @@ class FasterRCNNFPN(nn.Module):
         k = prop_boxes.shape[1]
         roi_feats = self._roi_align_batched(p23456, prop_boxes, 7,
                                             valid=prop_valid)
-        label_out, box_out = self._apply_head(roi_feats)
+        label_out, box_out = self._apply_head(roi_feats, prop_boxes,
+                                              prop_valid)
 
         if cfg.use_frcnn_class_agnostic:
             box_out = box_out.expand(b, k, self.num_out_class - 1, 4)
@@ -415,6 +431,21 @@ class FasterRCNNFPN(nn.Module):
         picked = torch.gather(
             logits, -1, sel[:, :, None, None, None].expand(b, r, 28, 28, 1))
         return torch.sigmoid(picked[..., 0])
+
+    @torch.inference_mode()
+    def extract_box_feat(self, images: torch.Tensor, boxes: torch.Tensor
+                         ) -> torch.Tensor:
+        """The feature extractor alone (JAX faster_rcnn.py:663-674; the
+        reference's RCNN_FPN_givenbox): images [B, h, w, 3] BGR and boxes
+        [B, N, 4] in image coordinates -> mean-pooled 7x7 ROI features
+        [B, N, C] float32. The ROIAlign takes every box (no validity mask),
+        through kernel B1 with roi_align_impl="pallas"."""
+        b, h, w = images.shape[:3]
+        hp, wp, _, _ = self._static_geometry(h, w)
+        p23456 = self.backbone(self.preprocess(images, hp, wp))
+        boxes = boxes.to(device=images.device,
+                         dtype=torch.float32).contiguous()
+        return self._roi_align_batched(p23456, boxes, 7).mean(dim=(2, 3))
 
     # ------------------------------------------------------------------
     # training forward
@@ -474,7 +505,8 @@ class FasterRCNNFPN(nn.Module):
         roi_boxes = torch.where(samples["valid"][..., None],
                                 samples["boxes"], unit).contiguous()
         roi_feats = self._roi_align_batched(p23456, roi_boxes, 7)
-        label_out, box_out = self._apply_head(roi_feats)
+        label_out, box_out = self._apply_head(roi_feats, roi_boxes,
+                                              samples["valid"])
 
         reg_w = torch.tensor(cfg.fastrcnn_bbox_reg_weights,
                              dtype=torch.float32, device=images.device)

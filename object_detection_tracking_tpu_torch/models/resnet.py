@@ -13,15 +13,23 @@ shifts every box):
 Module and parameter names follow the JAX tree (``group0.block0.conv1``...),
 so params.py maps them one to one. Activations NCHW, channels_last memory.
 
+``use_deformable`` gives the last ``modified_block_num`` blocks of groups
+1-3 a deformable conv2 (``conv2_offset``, JAX resnet.py:94-100, :118-124):
+its taps sampled at offsets from a side conv (models/deformable.py), at
+stride 2 in a lead block, where the block's dilation and the stride-2
+padding of the plain conv2 do not apply.
+
 ``fused_stages`` (config.backbone_impl="pallas") keeps the JAX gate
 (resnet.py:244-282): in a plain bottleneck ResNet (no SE, no ResNeXt),
-each group of dilation 1 runs its stride-2 lead block unfused and its
-stride-1 tail through the bottleneck-stage kernel (ops/resnet_stage.py),
-once per group. The JAX path's ``_fusable_rows`` and ``_pick_tr >= 4``
-fallbacks are TPU VMEM limits and are left out (ROADMAP C6): every
-eligible tail is fused. Training runs the unfused blocks (the model builds
-its ResNet without ``fused_stages`` when ``is_train``, JAX
-faster_rcnn.py:276-277).
+each group of dilation 1 with no deformable block (JAX resnet.py:253-254)
+runs its stride-2 lead block unfused and its stride-1 tail through the
+bottleneck-stage kernel (ops/resnet_stage.py), once per group. At R101 v4
+that is c2, c3 and c4 (3 launches a forward); with ``use_deformable`` c2
+alone (1 launch), c3 and c4 running unfused, c5 dilated as before. The
+JAX path's ``_fusable_rows`` and ``_pick_tr >= 4`` fallbacks are TPU VMEM
+limits and are left out (ROADMAP C6): every eligible tail is fused.
+Training runs the unfused blocks (the model builds its ResNet without
+``fused_stages`` when ``is_train``, JAX faster_rcnn.py:276-277).
 
 ``freeze`` is JAX's gradient cut (resnet.py:287-288): the stem and groups
 0..freeze run under ``torch.no_grad()``, so their outputs carry no
@@ -40,6 +48,7 @@ from torch import nn
 
 from ..ops.norm import bn_relu, frozen_bn
 from ..ops.resnet_stage import fused_bottleneck_stage_cuda
+from .deformable import deformable_conv2d
 from .layers import Conv, conv2d, dense, max_pool
 
 _STRIDE2_PAD = ((1, 0), (1, 0))
@@ -47,7 +56,7 @@ _STRIDE2_PAD = ((1, 0), (1, 0))
 
 class Bottleneck(nn.Module):
     def __init__(self, c_in: int, ch_out: int, stride: int, dilation: int,
-                 use_se: bool, use_resnext: bool):
+                 use_se: bool, use_resnext: bool, deformable: bool = False):
         super().__init__()
         groups = 32 if use_resnext else 1
         width = ch_out * 2 if use_resnext else ch_out
@@ -56,6 +65,7 @@ class Bottleneck(nn.Module):
         self.conv2 = Conv(3, width, width, use_bias=False, groups=groups,
                           bn=True)
         self.conv3 = Conv(1, width, ch_out * 4, use_bias=False, bn=True)
+        self.conv2_offset = Conv(3, width, 18) if deformable else None
         if c_in != ch_out * 4:
             self.convshortcut = Conv(1, c_in, ch_out * 4, use_bias=False,
                                      bn=True)
@@ -69,7 +79,11 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         l = bn_relu(self.conv1.bn, conv2d(self.conv1, x))
-        if self.stride == 2:
+        if self.conv2_offset is not None:
+            l = deformable_conv2d(self.conv2_offset, self.conv2.weight, l,
+                                  stride=self.stride)
+            l = bn_relu(self.conv2.bn, l)
+        elif self.stride == 2:
             l = conv2d(self.conv2, l, stride=2, padding=_STRIDE2_PAD,
                        dilation=self.dilation)
             l = bn_relu(self.conv2.bn, l)
@@ -128,9 +142,6 @@ class ResNet(nn.Module):
                  use_resnext: bool = False, use_deformable: bool = False,
                  fused_stages: bool = False, modified_block_num: int = 3):
         super().__init__()
-        if use_deformable:
-            raise NotImplementedError(
-                "deformable convs are not ported yet (ROADMAP A8)")
         self.conv0 = Conv(7, 3, 64, use_bias=False, bn=True)
         c_in = 64
         fuse = (fused_stages and not use_basic_block and not use_se
@@ -147,12 +158,15 @@ class ResNet(nn.Module):
                     group[f"block{bi}"] = BasicBlock(c_in, feat, s)
                     c_in = feat
                 else:
-                    d = dilation if bi >= count - modified_block_num else 1
-                    group[f"block{bi}"] = Bottleneck(c_in, feat, s, d, use_se,
-                                                     use_resnext)
+                    modified = bi >= count - modified_block_num
+                    d = dilation if modified else 1
+                    group[f"block{bi}"] = Bottleneck(
+                        c_in, feat, s, d, use_se, use_resnext,
+                        deformable=use_deformable and gi >= 1 and modified)
                     c_in = feat * 4
             self.add_module(f"group{gi}", group)
-            if fuse and dilation == 1:
+            if fuse and dilation == 1 and not any(
+                    b.conv2_offset is not None for b in group.values()):
                 self.fused_groups.append(gi)
         self.num_groups = len(num_blocks)
 

@@ -1,5 +1,5 @@
-"""Frozen and batch-statistics BatchNorm (port of
-object_detection_tracking_tpu/ops/norm.py:26-63).
+"""Frozen and batch-statistics BatchNorm, and GroupNorm (port of
+object_detection_tracking_tpu/ops/norm.py:26-63, :99-116).
 
 Stored EMA statistics applied with eps=1e-5 (reference nn.py:1722-1792).
 The affine folds into one scale/offset pair computed in f32 from the f32
@@ -16,6 +16,11 @@ every parameter.
 ``batch_bn`` is the training-mode BN that EfficientDet trains with (JAX
 ops/norm.py:41-63): the current batch's statistics in place of the stored
 ones, differentiated through.
+
+``group_norm`` is the FPN's optional GroupNorm (``use_gn``, JAX
+ops/norm.py:106-116): min(32, C) groups, float32 statistics (a two-pass
+variance, as ``jnp.var``), the affine in float32, the result in the
+input's dtype.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 BN_EPS = 1e-5
+GN_EPS = 1e-5
 
 
 class FrozenBN(nn.Module):
@@ -70,3 +76,27 @@ def batch_bn(bn: FrozenBN, x: torch.Tensor) -> torch.Tensor:
     offset = bn.beta - mu * scale
     shape = (1, -1) + (1,) * (x.dim() - 2)
     return x * scale.to(x.dtype).view(shape) + offset.to(x.dtype).view(shape)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm affine parameters ``gamma``/``beta`` (the JAX tree's
+    ``init_gn``); applied with ``group_norm``."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(c), requires_grad=False)
+        self.beta = nn.Parameter(torch.zeros(c), requires_grad=False)
+
+
+def group_norm(gn: GroupNorm, x: torch.Tensor, groups: int = 32
+               ) -> torch.Tensor:
+    """GroupNorm over the channels (dim 1) of an NCHW map, computed on its
+    NHWC view as JAX does, so a channels_last input gives a channels_last
+    output."""
+    n, c, h, w = x.shape
+    g = min(groups, c)
+    x32 = x.permute(0, 2, 3, 1).float().reshape(n, h, w, g, c // g)
+    mean = x32.mean(dim=(1, 2, 4), keepdim=True)
+    var = x32.var(dim=(1, 2, 4), unbiased=False, keepdim=True)
+    x32 = ((x32 - mean) / torch.sqrt(var + GN_EPS)).reshape(n, h, w, c)
+    return (x32 * gn.gamma + gn.beta).to(x.dtype).permute(0, 3, 1, 2)

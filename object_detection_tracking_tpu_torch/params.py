@@ -18,7 +18,8 @@ by the same transpose.
 
 ``init_params`` builds that tree without JAX, from a ``torch.Generator``,
 with the JAX initialiser families (models/layers.py:29-61, fpn.py:20-74,
-heads.py:20-57, :106-119, efficientdet/efficientnet.py:101-140,
+heads.py:20-57, :106-119, relation.py:21-38, resnet.py:94-100, ops/norm.py:
+99-103, efficientdet/efficientnet.py:101-140,
 efficientdet/efficientdet.py:93-163): the same distributions, not the
 same bits.
 """
@@ -225,7 +226,26 @@ class _Init:
         return {"W": w, "b": np.zeros((d_out,), np.float32)}
 
 
-def _init_resnet(init: _Init, cfg) -> Tree:
+def _gn_leaves(c: int) -> Tree:
+    """JAX ops/norm.py init_gn."""
+    return {"gamma": np.ones((c,), np.float32),
+            "beta": np.zeros((c,), np.float32)}
+
+
+def _init_relation(init: _Init, feat_dim: int, group: int = 16,
+                   geo_feat_dim: int = 64) -> Tree:
+    """JAX relation.py init_relation: ``output_linear.W`` is
+    [group * D, D]."""
+    return {
+        "geo_emb": init.dense(4, geo_feat_dim),
+        "geo_conv": init.dense(geo_feat_dim, group),
+        "query_linear": {"W": init.dense(feat_dim, feat_dim)["W"]},
+        "key_linear": {"W": init.dense(feat_dim, feat_dim)["W"]},
+        "output_linear": {"W": init.dense(group * feat_dim, feat_dim)["W"]},
+    }
+
+
+def _init_resnet(init: _Init, cfg, modified_block_num: int = 3) -> Tree:
     params: Tree = {"conv0": init.conv(7, 3, 64, use_bias=False, bn=True)}
     c_in = 64
     for gi, (count, feat) in enumerate(zip(cfg.resnet_num_block,
@@ -246,6 +266,11 @@ def _init_resnet(init: _Init, cfg) -> Tree:
                      "conv2": init.conv(3, width, width, False,
                                         groups=groups, bn=True),
                      "conv3": init.conv(1, width, feat * 4, False, bn=True)}
+                if (cfg.use_deformable and gi >= 1
+                        and bi >= count - modified_block_num):
+                    p["conv2_offset"] = init.conv(3, width, 18,
+                                                  w_init="normal",
+                                                  stddev=1e-8)
                 if c_in != feat * 4:
                     p["convshortcut"] = init.conv(1, c_in, feat * 4, False,
                                                   bn=True)
@@ -265,11 +290,9 @@ def init_params(config, seed: int = 0, model_name: str = "faster_rcnn"
     cfg = config
     if model_name == "efficientdet":
         return _init_efficientdet(_Init(seed), cfg)
-    if cfg.use_deformable or cfg.use_gn \
-            or cfg.use_small_object_head or cfg.add_relation_nn \
-            or cfg.use_att_frcnn_head or cfg.use_conv_frcnn_head:
+    if cfg.use_small_object_head:
         raise NotImplementedError(
-            "this configuration needs modules not ported yet (ROADMAP A8)")
+            "use_small_object_head is not ported yet (ROADMAP A8b)")
     init = _Init(seed)
     c_channels = ((64, 128, 256, 512) if cfg.use_basic_block
                   else (256, 512, 1024, 2048))
@@ -278,6 +301,9 @@ def init_params(config, seed: int = 0, model_name: str = "faster_rcnn"
     for i, c in enumerate(c_channels):
         fpn[f"lateral_1x1_c{i + 2}"] = init.conv(1, c, ch, w_init="xavier1")
         fpn[f"posthoc_3x3_p{i + 2}"] = init.conv(3, ch, ch, w_init="xavier1")
+        if cfg.use_gn:
+            fpn[f"gn_c{i + 2}"] = _gn_leaves(ch)
+            fpn[f"gn_p{i + 2}"] = _gn_leaves(ch)
     a = cfg.num_anchors_per_cell
     rpn = {"conv0": init.conv(3, ch, ch, w_init="normal", stddev=0.01),
            "class": init.conv(1, ch, a, w_init="normal", stddev=0.01),
@@ -289,9 +315,23 @@ def init_params(config, seed: int = 0, model_name: str = "faster_rcnn"
             "class": init.dense(fc, cfg.num_class, "normal", 0.01),
             "box": init.dense(fc, n_box * 4, "normal", 0.001),
         },
-        "fc6": init.dense(7 * 7 * ch, fc),
-        "fc7": init.dense(fc, fc),
     }
+    if cfg.use_conv_frcnn_head:     # JAX heads.py:38-45
+        c_in, cd = ch, cfg.conv_frcnn_head_dim
+        for k in range(4):
+            fastrcnn[f"conv{k}"] = init.conv(3, c_in, cd,
+                                             w_init="msra_fanout")
+            c_in = cd
+        fastrcnn["fc"] = init.dense(7 * 7 * cd, fc)
+    else:
+        fastrcnn["fc6"] = init.dense(7 * 7 * ch, fc)
+        fastrcnn["fc7"] = init.dense(fc, fc)
+    if cfg.add_relation_nn:
+        fastrcnn["RM_r1"] = _init_relation(init, fc)
+        fastrcnn["RM_r2"] = _init_relation(init, fc)
+    if cfg.use_att_frcnn_head:
+        fastrcnn["attention"] = init.conv(3, ch, 1, w_init="xavier1")
+        fastrcnn["att_trans"] = init.dense(ch, fc)
     tree = {"resnet": _init_resnet(init, cfg), "fpn": fpn, "rpn": rpn,
             "fastrcnn": fastrcnn}
     if cfg.add_mask:   # JAX heads.py:106-119

@@ -24,6 +24,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 cv2 = pytest.importorskip("cv2")
@@ -160,16 +161,28 @@ def test_segmentation_matches_jax_cli(run_both):
 
 
 def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path):
+    """The A12 flags raise; the five architecture options (ported) reach
+    the configuration as JAX's build_config forwards them, and the
+    small-object head, which no flag turns on, is refused by the model
+    naming A8b."""
     base = ["--video_dir", str(tmp_path), "--video_lst_file", "x"]
-    for flag in ("--use_deformable",
-                 "--use_gn", "--add_relation_nn", "--use_att_frcnn_head",
-                 "--use_conv_frcnn_head", "--use_lijun_video_loader"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flag in ("--use_lijun_video_loader", "--log_time_and_gpu"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             tcli.get_args(base + [flag])
+    toggles = ["--use_deformable", "--use_gn", "--add_relation_nn",
+               "--use_att_frcnn_head", "--use_conv_frcnn_head"]
+    argv = base + toggles
+    got = tcli.build_config(tcli.get_args(argv), torch.device("cpu"))
+    ref = jcli.build_config(jcli.get_args(argv + ["--compute_dtype",
+                                                  "float32"]))
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.use_deformable and got.add_relation_nn
+    from object_detection_tracking_tpu_torch.models import get_model
+    with pytest.raises(NotImplementedError, match="A8b"):
+        get_model(dataclasses.replace(got, use_small_object_head=True))
     args = tcli.get_args(base + ["--tracker", "tmot"])
     assert args.tracker == "tmot"
     assert (args.track_max_second_lost, args.emb_max_dist) == (4.0, 0.7)
-    import torch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             tcli.resolve_device("cuda")

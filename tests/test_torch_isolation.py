@@ -4,7 +4,8 @@ solves an assignment and runs a training forward and backward with both
 imports the JAX package or reads one of its files, and its own copies of
 the JAX-free modules (config, class_ids, utils/masks, csrc/lapjv.cpp,
 data/training.py, data/synthetic.py, evaluation.py, evaluation_mot.py,
-tracking/tmot/, reid/, the automl name map of utils/effdet_weights.py)
+tracking/tmot/, reid/, data/datasets.py, the automl name map of
+utils/effdet_weights.py)
 hold the same values as the originals."""
 
 import ast
@@ -41,6 +42,7 @@ def _sources():
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_roi_align_ab.py")
+    yield os.path.join(ROOT, "tools", "torch_effdet_f32_noise.py")
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():
@@ -88,7 +90,19 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "    out = t.update([((1., 2., 30., 40.), 0.9, np.ones(8))])\n"
         "assert [s.track_id for s in out] == [1], out\n"
         "from object_detection_tracking_tpu_torch.cli import "
-        "multi_video_reid, reid_query, single_video_reid\n"
+        "multi_video_reid, obj_detect_imgs, reid_query, single_video_reid\n"
+        "from object_detection_tracking_tpu_torch.config import "
+        "DetectorConfig\n"
+        "cfg = DetectorConfig(num_class=4, resnet_depth=50, "
+        "short_edge_size=32, max_size=64, rpn_test_post_nms_topk=16, "
+        "compute_dtype='float32', use_gn=True, use_deformable=True, "
+        "add_relation_nn=True, use_att_frcnn_head=True, "
+        "fpn_frcnn_fc_head_dim=64)\n"
+        "m = params_from_jax(init_params(cfg), get_model(cfg))\n"
+        "img = torch.zeros(1, 32, 64, 3, dtype=torch.uint8)\n"
+        "f = m.extract_box_feat(img, torch.tensor([[[2., 3., 20., 30.]]]))\n"
+        "assert f.shape == (1, 1, 256) and torch.isfinite(f).all(), f\n"
+        "assert torch.isfinite(m(img)['final_probs']).all()\n"
         "from object_detection_tracking_tpu_torch.models.reid.extractor "
         "import FeatureExtractor, build_reid_model\n"
         "import tempfile, os\n"
@@ -159,7 +173,11 @@ def test_no_source_imports_or_reads_the_jax_package():
             "object_detection_tracking_tpu_torch/models/reid/osnet.py",
             "object_detection_tracking_tpu_torch/models/reid/resnet_reid.py",
             "object_detection_tracking_tpu_torch/models/reid/extractor.py",
-            "object_detection_tracking_tpu_torch/reid/multi_video.py"
+            "object_detection_tracking_tpu_torch/reid/multi_video.py",
+            "object_detection_tracking_tpu_torch/cli/obj_detect_imgs.py",
+            "object_detection_tracking_tpu_torch/data/datasets.py",
+            "object_detection_tracking_tpu_torch/models/deformable.py",
+            "object_detection_tracking_tpu_torch/models/relation.py"
             } <= scanned
 
 
@@ -315,6 +333,7 @@ def test_lapjv_source_is_the_jax_solver():
 
 
 @pytest.mark.parametrize("path", ["data/training.py", "data/synthetic.py",
+                                  "data/datasets.py",
                                   "evaluation.py", "evaluation_mot.py",
                                   "tracking/tmot/__init__.py",
                                   "tracking/tmot/matching.py",

@@ -292,6 +292,37 @@ def test_forward_with_kernel_matches_plain_roi_align(cuda):
         <= 1e-4 * scale
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extract_box_feat_through_the_kernel_matches_plain(cuda, dtype):
+    """extract_box_feat on the caller's boxes (some past the image, one of
+    zero area, no validity mask): one B1 launch, and the mean-pooled
+    features within the kernel's bound (1e-4 of the plain result's largest
+    magnitude, as chip_smoke's launch checks) of the plain version on the
+    same backbone maps."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DetectorConfig(num_class=5, resnet_depth=18, short_edge_size=64,
+                         max_size=96, compute_dtype=dtype)
+    model = params_from_jax(init_params(cfg, seed=0), get_model(cfg))
+    model.to(cuda).eval()
+    rng = np.random.RandomState(2)
+    imgs = torch.from_numpy(rng.randint(0, 256, (2, 64, 96, 3)).astype(
+        np.uint8)).to(cuda)
+    xy = rng.uniform(-10, 86, (2, 40, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(2, 60, (2, 40, 2))], -1)
+    boxes[1, 0] = [20, 20, 20, 20]
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda)
+    before = RA.multilevel_roi_align_cuda.launches
+    got = model.extract_box_feat(imgs, boxes)
+    assert RA.multilevel_roi_align_cuda.launches == before + 1
+    model.config = dataclasses.replace(cfg, roi_align_impl="xla")
+    ref = model.extract_box_feat(imgs, boxes)
+    assert got.shape == ref.shape == (2, 40, 256)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * max(1.0, ref.abs().max())
+
+
 def stage_blocks(n, c_in, width, seed=0):
     """n stride-1 bottleneck blocks (a shortcut conv on the first when
     c_in != 4 * width), msra weights and non-trivial frozen-BN statistics,

@@ -2,6 +2,10 @@
 package (tests/test_torch_*.py): small configurations, seeded params, the
 float32 comparison rule."""
 
+import copy
+import dataclasses
+from functools import lru_cache
+
 import numpy as np
 
 from object_detection_tracking_tpu.config import DetectorConfig
@@ -32,6 +36,47 @@ def jax_params(jm, seed=0):
                 last = blk["conv3"] if "conv3" in blk else blk["conv2"]
                 last["bn"]["gamma"] = last["bn"]["gamma"] * 0.2
     return params
+
+
+@lru_cache(maxsize=None)
+def _init_tree(cfg):
+    """The port's init_params tree for the JAX config ``cfg`` (cached; the
+    callers copy it before changing it)."""
+    from object_detection_tracking_tpu_torch.config import \
+        DetectorConfig as PortConfig
+    from object_detection_tracking_tpu_torch.params import init_params
+    return init_params(PortConfig(**dataclasses.asdict(cfg)))
+
+
+def option_tree(cfg):
+    """One tree for both packages under the detector's architecture
+    options, from the port's init (the JAX initialiser families drawn from
+    a torch.Generator; JAX's own init takes ~7-15 s at R50 on the CPU):
+    each residual branch's last BN gamma x0.2 (as ``jax_params``, for the
+    reason given there), GroupNorm's gamma drawn from U(0.8, 1.2) and beta
+    from N(0, 0.1) (off the identity, so that a swap would show), and each
+    deformable offset conv redrawn so that its taps move by about a pixel
+    (at the init's stddev of 1e-8 they would not move at all)."""
+    tree = copy.deepcopy(_init_tree(cfg))
+    rng = np.random.RandomState(1)
+    for gname, group in tree["resnet"].items():
+        if gname.startswith("group"):
+            for blk in group.values():
+                last = blk["conv3"] if "conv3" in blk else blk["conv2"]
+                last["bn"]["gamma"] = last["bn"]["gamma"] * 0.2
+                if "conv2_offset" in blk:
+                    wo = blk["conv2_offset"]["W"]
+                    std = 0.5 / np.sqrt(wo.shape[0] * wo.shape[1]
+                                        * wo.shape[2])
+                    blk["conv2_offset"]["W"] = (
+                        rng.randn(*wo.shape) * std).astype(np.float32)
+    for name, node in tree["fpn"].items():
+        if name.startswith("gn_"):
+            node["gamma"] = rng.uniform(0.8, 1.2, node["gamma"].shape
+                                        ).astype(np.float32)
+            node["beta"] = (0.1 * rng.randn(*node["beta"].shape)
+                            ).astype(np.float32)
+    return tree
 
 
 def close(got, ref, rel=1e-4):
