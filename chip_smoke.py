@@ -149,7 +149,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                64 crops of mixed sizes and the whole call apart; card f32
                against the CPU's f32 on 16 crops (<= 1e-3 of max |CPU|,
                TF32 off), card bf16 against card f32 (row cosine >= 0.99),
-               features finite; then, with cv2 blocked and phase 7's video
+               features finite; the same for one net of each further
+               family (se_resnet50, resnet50_ibn_a, mobilenetv2_x1_0,
+               densenet121, squeezenet1_1, shufflenet_v2_x1_0); then, with
+               cv2 blocked and phase 7's video
                re-rendered in memory for every decode, single_video_reid's
                main on phase 7's MOT files with each class's longest track
                cut in two (at least one candidate pair scored; the output's
@@ -182,6 +185,24 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                kernel time beside the default's), --use_conv_frcnn_head (1
                batch) and --is_efficientdet d0 (1 batch, B1 once, images
                fitted into 512)
+ 17. small objects  (a) the small-object heads with the person association
+               (use_small_object_head, use_so_association; ROADMAP A8b) on
+               phase 7's detector and weights: R101-FPN v4, masks, fused,
+               bf16, B=8, 1920x1080, 3 forwards of one synthetic batch; B1
+               4 times a forward (the SO and person boxes pooled in one
+               launch), B2 3 times; the SO outputs' shapes, labels and
+               valid counts, finite; the SO launch redone on its own inputs
+               against the plain version (timed); the forward's host wall
+               and kernel time with and without the heads, beside phase
+               8's. (b) cli/main.py train --use_small_object_head at phase
+               9's settings (B=2, masks, freeze=2, bf16), 4 steps on a
+               batch of Person, Prop, Vehicle and Bike boxes: B1 and B1b 3
+               times a step, B1e (the ROIAlign box gradient) once; every
+               loss, so_label_loss among them, finite; the step split by
+               CUDA events; B1, B1b and B1e on one step's SO launch, read
+               off its autograd graph, against their plain versions
+               (B1e: within 1e-4 of max |plain|, with bf16 and float32
+               features; two launches bitwise equal; timed, bound)
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -304,6 +325,17 @@ IMG_SIZES = ((1080, 1920), (1080, 1440))
 IMG_BATCHES, IMG_OPT_BATCHES, IMG_PNGS = 4, 2, 16
 IMG_OPTIONS = ["--use_gn", "--use_deformable", "--add_relation_nn",
                "--use_att_frcnn_head"]
+# ReID phase (15), extended: one net of each further family, as the
+# defaults are run
+REID_FAMILIES = ("se_resnet50", "resnet50_ibn_a", "mobilenetv2_x1_0",
+                 "densenet121", "squeezenet1_1", "shufflenet_v2_x1_0")
+# small-object phase (17): the SO heads on phase 7's detector, timed
+# forwards; the train CLI with --use_small_object_head at phase 9's
+# settings, steps; B1e vs plain autograd, as a share of max |plain|
+# (float32 sums over the samples and channels of each ROI, in another
+# fixed order; tests/test_torch_kernels_cuda.py)
+SO_FORWARDS, SO_TRAIN_STEPS = 3, 4
+B1E_REL = 1e-4
 
 
 def stage_rel(dtype_name, n_blocks):
@@ -1196,15 +1228,20 @@ def event_ms(fn, runs):
     return start.elapsed_time(end) / runs
 
 
-def device_ms(fn, names, runs=3, others=None):
+def device_ms(fn, names, runs=3, others=None, per_call=None):
     """Device time per call of fn's kernels whose names hold each of
     ``names`` ({group: substring}): torch.profiler over `runs` calls
-    (``profiled``). Only the kernels' own time: no host preamble, no
-    allocation. Returns {group: ms}; the names of the other device
-    activities (kernels, memsets, copies) with time are appended to
-    ``others`` when given. Where no profile holds every group, one group
-    is timed with CUDA events instead (``event_ms``) and the log says so;
-    several groups cannot be told apart that way, and raise."""
+    (``profiled``), each group's time over the launches the profile
+    recorded of it, times the launches one call makes (``per_call``,
+    {group: n}, 1 where not given). A profile late in a long run once
+    held 1 of 15 launches, which a mean over the calls would have read as
+    a fifteenth of the time; the log says where launches are missing.
+    Only the kernels' own time: no host preamble, no allocation. Returns
+    {group: ms}; the names of the other device activities (kernels,
+    memsets, copies) with time are appended to ``others`` when given.
+    Where no profile holds every group, one group is timed with CUDA
+    events instead (``event_ms``) and the log says so; several groups
+    cannot be told apart that way, and raise."""
     prof = profiled(fn, runs, tuple(names.values()))
     if prof is None:
         if len(names) != 1:
@@ -1216,20 +1253,31 @@ def device_ms(fn, names, runs=3, others=None):
             f"kernel in {PROFILE_TRIES} tries: {ms:.4f} ms from CUDA events "
             f"around {runs} calls back to back instead")
         return dict.fromkeys(names, ms)
-    out = dict.fromkeys(names, 0.0)
+    total = dict.fromkeys(names, 0.0)
+    count = dict.fromkeys(names, 0)
     for e in _cuda_events(prof):
         hit = False
         for group, name in names.items():
             if name in e.key:
-                out[group] += e.self_device_time_total / 1e3 / runs
+                total[group] += e.self_device_time_total / 1e3
+                count[group] += e.count
                 hit = True
         if not hit and others is not None and e.self_device_time_total > 0:
             others.append(e.key)
+    out = {}
+    for group in names:
+        n = (per_call or {}).get(group, 1)
+        if count[group] != n * runs:
+            log("profile", f"{names[group]}: the profile recorded "
+                f"{count[group]} of {n * runs} launches; its time is over "
+                f"those it recorded")
+        out[group] = total[group] / count[group] * n
     return out
 
 
 def roi_device_ms(fn):
-    """Device time per call of fn's ROIAlign kernel launches (mean of 15)."""
+    """Device time per call of fn's one ROIAlign kernel launch
+    (torch.profiler over 15 calls)."""
     return device_ms(fn, {"roi": "roi_align_fwd"}, runs=15)["roi"]
 
 
@@ -1300,9 +1348,12 @@ def phase_stage():
                 r["ms"], r["plain_ms"], r["cudnn_ms"] = median_ms(
                     [kernel, plain, cudnn])
                 r["by_kind"] = {}
+                # a launch each conv: 3 a block, the first's shortcut
                 for kind, ms in device_ms(kernel, {
                         "1x1": "bneck_conv1x1",
-                        "3x3": "bneck_conv3x3"}).items():
+                        "3x3": "bneck_conv3x3"}, per_call={
+                        "1x1": 2 * n + (c_in != 4 * width),
+                        "3x3": n}).items():
                     kf, kb = kinds[kind]
                     r["by_kind"][kind] = {
                         "ms": ms, "tflop_per_s": kf / ms / 1e9,
@@ -1972,12 +2023,13 @@ def phase_train(tmp):
     return out
 
 
-def roi_backward_inputs(loss):
-    """Runs loss's backward and returns, by pool size, the inputs that each
-    trainable ROIAlign node of its graph gives B1b: (features, boxes,
-    strides, grad_out, levels). The nodes are found by walking the graph
-    and read by a pre-hook, which sees the gradient before the node's
-    backward runs; the wrapper itself is left alone."""
+def roi_backward_inputs(loss, key=lambda node: node.output_size):
+    """Runs loss's backward and returns, by ``key`` of the node (its pool
+    size unless given), the inputs that each trainable ROIAlign node of its
+    graph gives B1b (and B1e): (features, boxes, strides, grad_out,
+    levels). The nodes are found by walking the graph and read by a
+    pre-hook, which sees the gradient before the node's backward runs; the
+    wrapper itself is left alone."""
     captured, seen, todo = {}, set(), [loss.grad_fn]
     while todo:
         node = todo.pop()
@@ -1987,9 +2039,8 @@ def roi_backward_inputs(loss):
         if type(node).__name__ == "_TrainableROIAlignBackward":
             def hook(grad_outputs, node=node):
                 boxes, levels, *feats = node.saved_tensors
-                captured[node.output_size] = (feats, boxes, node.strides,
-                                              grad_outputs[0].contiguous(),
-                                              levels)
+                captured[key(node)] = (feats, boxes, node.strides,
+                                       grad_outputs[0].contiguous(), levels)
             node.register_prehook(hook)
         todo.extend(f for f, _ in node.next_functions)
     loss.backward()
@@ -2817,8 +2868,8 @@ def reid_weights(name, path, seed):
     the parameter count."""
     import torch
     from torch import nn
-    from object_detection_tracking_tpu_torch.models.reid import osnet, \
-        resnet_reid
+    from object_detection_tracking_tpu_torch.models.reid import (
+        ibn_reid, mobilenetv2, osnet, resnet_reid, senet_reid)
     from object_detection_tracking_tpu_torch.models.reid.extractor import \
         build_reid_model
     torch.manual_seed(seed)
@@ -2826,8 +2877,12 @@ def reid_weights(name, path, seed):
     bns = []
     with torch.no_grad():
         for m in net.modules():
-            if isinstance(m, resnet_reid.Bottleneck):
+            if isinstance(m, (resnet_reid.Bottleneck, senet_reid.SEBottleneck,
+                              ibn_reid.IBNBottleneck)):
                 m.bn3.weight.mul_(0.2)
+            elif isinstance(m, mobilenetv2.MobileBottleneck) \
+                    and m.use_residual:
+                m.conv3[1].weight.mul_(0.2)
             elif isinstance(m, resnet_reid.BasicBlock):
                 m.bn2.weight.mul_(0.2)
             elif isinstance(m, (osnet.OSBlock, osnet.OSBlockAIN)):
@@ -3506,6 +3561,10 @@ def phase_reid(tmp, tracks):
         models[cls] = os.path.join(tmp, f"{name}.pth")
         reid_weights(name, models[cls], seed=i)
         res[name] = reid_extractor_run(name, models[cls], crops)
+    for i, name in enumerate(REID_FAMILIES, start=len(REID_MODELS)):
+        path = os.path.join(tmp, f"{name}.pth")
+        reid_weights(name, path, seed=i)
+        res[name] = reid_extractor_run(name, path, crops)
     n_frames = FRAME_GAP * BATCH * N_BATCHES
     opened = []
 
@@ -3535,6 +3594,359 @@ def phase_reid(tmp, tracks):
     if any(launches.values()):
         raise AssertionError(f"the ReID path launched {launches}")
     return res
+
+
+def roi_box_grad_bound_ms(feats, boxes, strides, pool, levels):
+    """The least time of one B1e launch, the larger of its bytes and its
+    operations, for what this launch's boxes need: the grad_out rows of
+    the bins with an in-map sample read once (float32), the feature pixels
+    the in-map taps read (roi_touched_bytes), the boxes and levels read and
+    4 floats a ROI written, over the memory rate; 16 float32 operations a
+    channel for each in-map sample (its two bilinear mixes along each axis,
+    their differences, two multiply-adds), over the float32 peak. Returns
+    (ms, "bytes" or "operations")."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    b, n = boxes.shape[:2]
+    c = feats[0].shape[-1]
+    dev = boxes.device
+    lvl = levels.long().clamp(0, len(feats) - 1)
+    stride = torch.tensor(list(strides), dtype=torch.float32, device=dev)
+    fb = boxes / stride[lvl][..., None]
+
+    def inside(lo, hi, extents):
+        ext = torch.tensor(extents, device=dev)[lvl][..., None]
+        s = RA._sample_grid(lo, hi, 2 * pool)
+        return (s >= 0) & (s <= (ext - 1).float())           # [B, N, 2P]
+    yin = inside(fb[..., 1], fb[..., 3], [f.shape[1] for f in feats])
+    xin = inside(fb[..., 0], fb[..., 2], [f.shape[2] for f in feats])
+    samples = int((yin.sum(-1) * xin.sum(-1)).sum().item())
+    bins = int((yin.reshape(b, n, pool, 2).any(-1).sum(-1)
+                * xin.reshape(b, n, pool, 2).any(-1).sum(-1)).sum().item())
+    touched = roi_touched_bytes(
+        feats, boxes, torch.ones(b, n, dtype=torch.bool, device=dev),
+        strides, pool, levels=levels)
+    nbytes = bins * c * 4 + touched + b * n * (20 + 16)
+    by_bytes = 1e3 * nbytes / PEAK_BYTES
+    by_ops = 1e3 * 16 * c * samples / PEAK_F32_FLOPS
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def check_roi_box_grad(label, feats, boxes, strides, pool, grad_out, levels,
+                       phase="so-train"):
+    """B1e on one training launch's own inputs against autograd of the
+    plain version with respect to the boxes
+    (multilevel_roi_align_box_vjp), with the path's features and with
+    them in float32: within B1E_REL of max |plain|; two launches agree bit
+    for bit. Times: the wrapper's CUDA-event time and the plain version's
+    (median of 15), the kernel's device time (torch.profiler, nothing else
+    in its profile), the bound (roi_box_grad_bound_ms). Returns a dict."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+
+    def kernel(f=feats):
+        return RA.multilevel_roi_align_box_grad_cuda(f, boxes, strides, pool,
+                                                     grad_out, levels)
+
+    def plain(f=feats):
+        return RA.multilevel_roi_align_box_vjp(f, boxes, strides, pool,
+                                               grad_out, levels)
+    entry = {}
+    runs = [("f32", [f.float() for f in feats])]
+    if feats[0].dtype != torch.float32:
+        runs.insert(0, (str(feats[0].dtype)[6:], feats))
+    for name, fs in runs:
+        got, ref = kernel(fs), plain(fs)
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        if not (torch.isfinite(got).all() and err <= B1E_REL * scale):
+            raise AssertionError(f"{phase} roi_align_box_grad {label} "
+                                 f"{name}: max |kernel - plain| {err} > "
+                                 f"{B1E_REL} x {scale}")
+        if not torch.equal(got.view(torch.int32),
+                           kernel(fs).view(torch.int32)):
+            raise AssertionError(f"{phase} roi_align_box_grad {label} "
+                                 f"{name}: two launches differ")
+        entry["err"] = max(entry.get("err", 0.0), err)
+        entry["share"] = max(entry.get("share", 0.0), err / max(scale,
+                                                                1e-30))
+    entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
+    others = []
+    entry["device_ms"] = device_ms(kernel, {"grad": "roi_align_box_grad"},
+                                   runs=15, others=others)["grad"]
+    if others:
+        raise AssertionError(f"{phase} roi_align_box_grad {label}: other "
+                             f"device work in its profile "
+                             f"{sorted(set(others))}")
+    entry["bound_ms"], entry["bound_by"] = roi_box_grad_bound_ms(
+        feats, boxes, strides, pool, levels)
+    entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
+    log(phase, f"roi_align_box_grad (B1e) on the step's own inputs, {label}:"
+        f" max |kernel - plain| {entry['err']:.3g} ({entry['share']:.3g} of "
+        f"max |plain|, bound {B1E_REL}; {', '.join(r for r, _ in runs)} "
+        f"features); two launches bitwise equal; kernel {entry['ms']:.4f} "
+        f"ms, plain {entry['plain_ms']:.4f} ms (median of 15, CUDA events), "
+        f"device {entry['device_ms']:.4f} ms (torch.profiler, 15 calls), "
+        f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
+        f"{entry['bound_share']:.1%} of it")
+    return entry
+
+
+def so_launch_inputs(model, x):
+    """One forward of ``model`` (with the small-object heads) on ``x``,
+    recording the SO pooling's B1 call: the launch with N = n_so x R +
+    so_person_topk boxes at P=7. Returns ((feats, strides, boxes, valid),
+    the forward's output)."""
+    import torch
+    from object_detection_tracking_tpu_torch.models import faster_rcnn as FR
+    cfg = model.config
+    calls = []
+    real = FR.multilevel_roi_align_cuda
+
+    def recording(features, boxes, strides, output_size, valid=None,
+                  levels=None):
+        calls.append((list(features), tuple(strides), boxes, valid,
+                      output_size))
+        return real(features, boxes, strides, output_size, valid=valid,
+                    levels=levels)
+    FR.multilevel_roi_align_cuda = recording
+    try:
+        with torch.inference_mode():
+            out = model(x)
+    finally:
+        FR.multilevel_roi_align_cuda = real
+    n = len(model.so_ids) * cfg.result_per_im + (
+        cfg.so_person_topk if cfg.use_so_association else 0)
+    so = [c[:4] for c in calls if c[2].shape[1] == n and c[4] == 7]
+    if len(so) != 1:
+        raise AssertionError(f"small-objects: {len(so)} SO pooling "
+                             f"launches among {len(calls)} (N={n})")
+    return so[0], out
+
+
+def phase_small_objects(tmp, actev_prof):
+    """Phase 17(a): the small-object heads with the person association on
+    phase 7's detector and weights (R101-FPN v4, masks, fused backbone,
+    bf16, B=8, 1920x1080), SO_FORWARDS forwards of one synthetic batch
+    with the launch counts set to 0 just before: B1 4 times a forward
+    (proposals, final boxes, masks, the SO pooling), B2 3 times; the SO
+    outputs finite; the SO pooling's launch redone on its own inputs
+    against the plain version (timed); host wall and kernel time with and
+    without the heads beside phase 8's. Returns a summary dict."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.params import \
+        init_small_objects
+
+    device = torch.device("cuda")
+    _, cfg, tree = actev_setup(tmp, device)
+    cfg = dataclasses.replace(cfg, use_small_object_head=True,
+                              use_so_association=True)
+    tree["small_objects"] = init_small_objects(cfg, seed=0)
+    model = build_model(cfg, tree, device)
+    names = [n for n in cfg.small_objects if n in cfg.classname2id]
+    video = SyntheticVideo(BATCH, seed=1, h=ACTEV_H, w=ACTEV_W)
+    x = torch.from_numpy(np.stack([video.read()[1] for _ in range(BATCH)])
+                         ).to(device)
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        RA.multilevel_roi_align_cuda.launches = 0
+        RS.fused_bottleneck_stage_cuda.launches = 0
+        for _ in range(SO_FORWARDS):
+            out = model(x)
+        torch.cuda.synchronize()
+    roi_n = RA.multilevel_roi_align_cuda.launches
+    stage_n = RS.fused_bottleneck_stage_cuda.launches
+    if roi_n != 4 * SO_FORWARDS or stage_n != 3 * SO_FORWARDS:
+        raise AssertionError(f"{SO_FORWARDS} forwards with the SO heads "
+                             f"launched roi_align {roi_n} and the stage "
+                             f"{stage_n} times, want 4 and 3 a forward")
+    r = cfg.result_per_im
+    want = {"so_final_boxes": (BATCH, r, 4), "so_final_labels": (BATCH, r),
+            "so_final_probs": (BATCH, r), "so_final_valid": (BATCH, r)}
+    for k, shape in want.items():
+        if tuple(out[k].shape) != shape or not torch.isfinite(
+                out[k].float()).all():
+            raise AssertionError(f"small-objects: {k} {tuple(out[k].shape)}"
+                                 f" (want {shape}) or not finite")
+    valid = out["so_final_valid"]
+    labels = out["so_final_labels"][valid]
+    if not ((labels >= 1) & (labels <= len(names))).all():
+        raise AssertionError(f"small-objects: SO labels {labels.unique()}")
+    per_image = valid.sum(1).tolist()
+    by_name = {n: int((labels == i + 1).sum()) for i, n in enumerate(names)}
+    log("small-objects", f"R101-FPN v4 + masks + SO heads ({names}, person "
+        f"association, top {cfg.so_person_topk} persons), {cfg.compute_dtype}, "
+        f"B={BATCH}, "
+        f"{ACTEV_W}x{ACTEV_H}: {SO_FORWARDS} forwards launched roi_align "
+        f"{roi_n} and the bottleneck stage {stage_n} times (4 and 3 a "
+        f"forward); so_final_valid per image {per_image}, by class "
+        f"{by_name}; outputs finite")
+
+    (feats, strides, boxes, pool_valid), _ = so_launch_inputs(model, x)
+    label = f"SO pooling N={boxes.shape[1]} P=7"
+    roi = check_roi_launch("small-objects", label, feats, strides, boxes,
+                           pool_valid, 7, True)
+    res = {"forwards": SO_FORWARDS, "roi_launches": roi_n,
+           "stage_launches": stage_n, "so_valid_per_image": per_image,
+           "so_by_class": by_name,
+           "pool_valid_slots": int(pool_valid.sum().item()),
+           "pool_slots": int(pool_valid.numel()), "roi": {label: roi}}
+    prof = phase_profile(model, x, "small-objects")
+    heads = model.small_objects
+    model.small_objects = None          # the same model without the heads
+    try:
+        prof_off = phase_profile(model, x, "small-objects")
+    finally:
+        model.small_objects = heads
+    res.update(wall_ms=prof["wall_ms"], kernel_ms=prof["kernel_ms"],
+               wall_off_ms=prof_off["wall_ms"],
+               kernel_off_ms=prof_off["kernel_ms"], by_kind=prof["by_kind"])
+    log("small-objects", f"forward host wall {prof['wall_ms']:.1f} ms with "
+        f"the SO heads, {prof_off['wall_ms']:.1f} ms without (phase 8: "
+        f"{actev_prof['wall_ms']:.1f}); kernel time {prof['kernel_ms']:.1f}"
+        f" / {prof_off['kernel_ms']:.1f} ms (phase 8: "
+        f"{actev_prof['kernel_ms']:.1f}); valid pooling slots "
+        f"{res['pool_valid_slots']} of {res['pool_slots']}")
+    del model, x, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_so_train(tmp):
+    """Phase 17(b): cli/main.py train --use_small_object_head at phase 9's
+    settings (R101-FPN v4, masks, bf16, B=2, freeze=2, random weights from
+    seed 0 through --load_from, a constant learning rate), SO_TRAIN_STEPS
+    steps on one in-memory batch whose gt boxes are Person, Prop, Vehicle
+    and Bike in turn; B1 and B1b 3 times a step (box head, SO pooling,
+    mask head) and B1e once (the SO pooling's boxes); the losses,
+    so_label_loss among them, finite; the step split by CUDA events; then
+    B1, B1b and B1e on the SO pooling's own inputs of one step, read off
+    its autograd graph, against their plain versions. Returns a summary."""
+    import torch
+    from object_detection_tracking_tpu_torch.cli import main as train_cli
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.params import (init_params,
+                                                            save_npz_tree)
+
+    device = torch.device("cuda")
+    args = train_cli.get_args([
+        "train", "--add_mask", "--use_small_object_head", "--im_batch_size",
+        str(TRAIN_BATCH), "--num_step", str(SO_TRAIN_STEPS),
+        "--lr_schedule", "constant", "--warmup_steps", "0",
+        "--clip_gradient_norm", "10", "--save_every", str(SO_TRAIN_STEPS),
+        "--outbasepath", os.path.join(tmp, "so_train"), "--device", "cuda"])
+    cfg = train_cli.build_config(args, True, device)
+    got = (cfg.resnet_depth, cfg.use_dilations, cfg.num_class, cfg.add_mask,
+           cfg.compute_dtype, cfg.freeze, cfg.roi_align_train_impl,
+           cfg.use_small_object_head, cfg.use_so_association)
+    if got != (101, True, 16, True, "bfloat16", 2, "pallas", True, False):
+        raise AssertionError(f"not the train CLI's v4 default with "
+                             f"--use_small_object_head: {got}")
+    tree = init_params(cfg, seed=0)
+    for gname, group in tree["resnet"].items():    # as in phase 9
+        if gname.startswith("group"):
+            for blk in group.values():
+                blk["conv3"]["bn"]["gamma"] *= 0.2
+    init = os.path.join(tmp, "so_train_init.npz")
+    save_npz_tree(init, tree)
+    args.load_from = init
+    images, boxes, labels, valid, masks = train_batch(cfg, args.max_gt)
+    ids = [cfg.classname2id[n] for n in ("Person", "Prop", "Vehicle",
+                                         "Bike")]
+    for j in range(labels.shape[1]):
+        labels[:, j] = valid[:, j] * ids[j % 4]
+    batch = (images, boxes, labels, valid, masks)
+
+    counters = (RA.multilevel_roi_align_cuda,
+                RA.multilevel_roi_align_backward_cuda,
+                RA.multilevel_roi_align_box_grad_cuda)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.mode_train(args, dataset=MemoryBatches(
+        batch, SO_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    losses = res["losses"]
+    log("so-train", f"main.py train --use_small_object_head: R101-FPN v4 + "
+        f"masks + SO heads, {ACTEV_W}x{ACTEV_H}, B={TRAIN_BATCH}, bf16, "
+        f"{res['step']} steps in {wall:.2f} s wall (build, load and "
+        f"checkpoint included); total loss per step: "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; launches {launches} "
+        f"(3, 3 and 1 a step)")
+    want = [3 * SO_TRAIN_STEPS, 3 * SO_TRAIN_STEPS, SO_TRAIN_STEPS]
+    if list(launches.values()) != want:
+        raise AssertionError(f"{SO_TRAIN_STEPS} steps launched {launches}, "
+                             f"want {want}")
+    if res["step"] != SO_TRAIN_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"{res['step']} steps, losses {losses}")
+    trainer = res["trainer"]
+    tb = [torch.from_numpy(a).to(device) for a in batch]
+    gen = torch.Generator(device=device)
+
+    # the step split by CUDA events
+    split = {"forward+loss": [], "backward": [], "optimizer": []}
+    for i in range(TRAIN_TIMED + 1):
+        gen.manual_seed(1000 + i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        step_losses = trainer.losses(*tb, generator=gen)
+        ev[1].record()
+        trainer.backward(step_losses)
+        ev[2].record()
+        trainer.apply_gradients()
+        ev[3].record()
+        ev[3].synchronize()
+        if 0 < i:
+            for k, (a, b) in zip(split, zip(ev, ev[1:])):
+                split[k].append(a.elapsed_time(b))
+    split = {k: sorted(v)[len(v) // 2] for k, v in split.items()}
+    log("so-train", f"one bf16 step, median of {TRAIN_TIMED} (CUDA events): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f"; {sum(split.values()):.2f} ms in all")
+
+    # B1, B1b and B1e on the SO pooling's own inputs of one step
+    gen.manual_seed(1000 + TRAIN_TIMED + 1)
+    step_losses = trainer.losses(*tb, generator=gen)
+    values = {k: v.item() for k, v in step_losses.items()}
+    if "so_label_loss" not in values or not all(
+            math.isfinite(v) for v in values.values()):
+        raise AssertionError(f"so-train: losses {values}")
+    log("so-train", "one step's losses: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in values.items()))
+    n_so = len([n for n in cfg.small_objects if n in cfg.classname2id])
+    captured = roi_backward_inputs(
+        step_losses["total_loss"],
+        key=lambda node: (node.output_size,
+                          node.saved_tensors[0].shape[1]))
+    so_key = (7, n_so * cfg.result_per_im)
+    if so_key not in captured:
+        raise AssertionError(f"so-train: no SO pooling node among "
+                             f"{sorted(captured)}")
+    feats, boxes, strides, grad_out, levels = captured[so_key]
+    feats = [f.detach() for f in feats]
+    boxes = boxes.detach()
+    label = f"SO pooling N={boxes.shape[1]} P=7"
+    out = {"steps": res["step"], "losses": losses, "wall_s": wall,
+           "launches": launches, "step_ms": split, "step_losses": values}
+    out["roi"] = {label: check_roi_launch("so-train", label, feats, strides,
+                                          boxes, None, 7, True)}
+    out["bwd"] = {label: check_roi_backward(label, feats, boxes, strides, 7,
+                                            grad_out, levels, "so-train")}
+    out["box_grad"] = {label: check_roi_box_grad(label, feats, boxes,
+                                                 strides, 7, grad_out,
+                                                 levels)}
+    del captured, trainer, res, step_losses
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_kernels(native):
@@ -3610,6 +4022,29 @@ def effdet_kernel_row(name, effdet, kres):
                   "P7-edge and zero boxes), f32 and bf16"}
 
 
+def so_box_grad_row(so_train):
+    """The kernels line's row of B1e: the SO pooling's launches of phase
+    17's train steps, redone and timed on one step's own inputs."""
+    (label, entry), = so_train["box_grad"].items()
+    return {
+        "name": "roi_align_box_grad", "route": "cuda",
+        "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
+        "replaces": "object_detection_tracking_tpu/ops/roi_align.py:136",
+        "launches": so_train["launches"][
+            "multilevel_roi_align_box_grad_cuda"],
+        "max_abs_err": entry["err"], "ms": entry["ms"],
+        "device_ms": entry["device_ms"], "plain_ms": entry["plain_ms"],
+        "bound_ms": entry["bound_ms"], "bound_share": entry["bound_share"],
+        "bound_by": entry["bound_by"], "library_ms": None,
+        "per_launch": so_train["box_grad"],
+        "shapes": f"phase 17's train steps (main.py train "
+                  f"--use_small_object_head, B=2, 1088x1920 pyramid, "
+                  f"C=256, bf16 features, float32 grad_out): {label}; "
+                  f"launches over {SO_TRAIN_STEPS} steps; the rest on one "
+                  f"step's own inputs (JAX has no kernel: XLA's autodiff "
+                  f"of the exact gather gives the box gradient)"}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3663,6 +4098,12 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         imgs = phase_imgs(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        so = phase_small_objects(tmp, prof)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        so_train = phase_so_train(tmp)
     imgs_roi = (list(imgs["check"]["roi"].values())
                 + list(imgs["options_check"]["roi"].values())
                 + [imgs["extract_box_feat"]])
@@ -3679,7 +4120,9 @@ def main():
               + [r["err"] for r in quality["r18-mask"]["roi"].values()]
               + [r["err"] for r in tmot["check"]["roi"].values()]
               + [r["err"] for r in tq_roi]
-              + [r["err"] for r in imgs_roi])
+              + [r["err"] for r in imgs_roi]
+              + [r["err"] for r in so["roi"].values()]
+              + [r["err"] for r in so_train["roi"].values()])
     bwd = train["bwd"]
     _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
     _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
@@ -3716,6 +4159,11 @@ def main():
         "imgs_conv_head_launches": imgs["conv_head"]["roi_launches"],
         "imgs_effdet_launches": imgs["effdet"]["roi_launches"],
         "extract_box_feat": imgs["extract_box_feat"],
+        "so_launches": so["roi_launches"],
+        "so_per_launch": so["roi"],
+        "so_train_launches": so_train["launches"][
+            "multilevel_roi_align_cuda"],
+        "so_train_per_launch": so_train["roi"],
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -3740,7 +4188,10 @@ def main():
                   "forward's own launches; the options; the conv head; "
                   "EfficientDet-d0), extract_box_feat: its one launch on "
                   "a batch's final boxes (N=100 P=7, no validity mask), "
-                  "timed"},
+                  "timed; so_*: phase 17's small-object heads, the SO "
+                  "pooling's launch (N=310 P=7, B=8) of the forwards and "
+                  "(N=300 P=7, B=2) of the train steps, timed on their own "
+                  "inputs"},
         {"name": "roi_align_backward", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"
@@ -3748,7 +4199,8 @@ def main():
          "launches": train["roi_align_backward_launches"],
          "max_abs_err": max(r["err_f32"] for r in list(bwd.values()) + list(
              quality["r18-mask"]["bwd"].values())
-             + list(track_quality["bwd"].values())),
+             + list(track_quality["bwd"].values())
+             + list(so_train["bwd"].values())),
          "max_abs_err_bf16": max(r["err_bf16"] for r in bwd.values()),
          "ms": sum(r["ms"] for r in bwd.values()),
          "device_ms": sum(r["device_ms"] for r in bwd.values()),
@@ -3759,6 +4211,9 @@ def main():
          "per_launch": bwd,
          "track_quality_launches": tq_launches,
          "track_quality_per_launch": track_quality["bwd"],
+         "so_train_launches": so_train["launches"][
+             "multilevel_roi_align_backward_cuda"],
+         "so_train_per_launch": so_train["bwd"],
          "shapes": "the training step's two launches (B=2, 1088x1920 "
                    "pyramid, C=256, bf16 features, float32 grad_out): box "
                    "head N=512 P=7, mask head fg rows P=14; max_abs_err "
@@ -3805,7 +4260,8 @@ def main():
                    "[8,68,120,1024] x22; ms, plain_ms, bound_ms, "
                    "per_conv_floor_ms, cudnn_stack_ms and by_kind summed "
                    "over the three"}
-        ] + [effdet_kernel_row(name, effdet, kres) for name in ("d0", "d6")],
+        ] + [effdet_kernel_row(name, effdet, kres) for name in ("d0", "d6")]
+        + [so_box_grad_row(so_train)],
         "effdet_path": {k: v for k, v in effdet.items()
                         if k not in ("roi", "d6")},
         "effdet_d6": {k: v for k, v in effdet["d6"].items() if k != "roi"},
@@ -3820,6 +4276,9 @@ def main():
         "reid": reid,
         "imgs": {k: v for k, v in imgs.items()
                  if k not in ("check", "options_check", "extract_box_feat")},
+        "small_objects": {k: v for k, v in so.items() if k != "roi"},
+        "so_train": {k: v for k, v in so_train.items()
+                     if k not in ("roi", "bwd", "box_grad")},
         "card": card}
     print(json.dumps(kernels))
     print(card)

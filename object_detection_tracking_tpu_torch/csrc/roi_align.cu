@@ -1,5 +1,6 @@
-// Multilevel FPN ROIAlign for Hopper (sm_90a): the forward (B1) and its
-// gradient to the features (B1b, at the end of this file).
+// Multilevel FPN ROIAlign for Hopper (sm_90a): the forward (B1), its
+// gradient to the features (B1b) and its gradient to the boxes (B1e); the
+// two gradients follow the forward in this file.
 //
 // Replaces the Pallas TPU kernel object_detection_tracking_tpu/ops/pallas/
 // roi_align_pallas.py (`_kernel` :138, launched by `_roi_align_levels`
@@ -389,8 +390,8 @@ extern "C" int roi_align_forward(
 // the bilinear weight and the 2x2 mean's 1/4, into the four neighbours the
 // forward read, then a cast to the features' dtype. This is that function,
 // written by hand. Its spec is autograd of the plain `multilevel_roi_align`
-// (ops/roi_align.py `multilevel_roi_align_vjp`); no gradient goes to the
-// boxes (the training path feeds detached proposals and gt rows).
+// (ops/roi_align.py `multilevel_roi_align_vjp`); the boxes' gradient is
+// B1e's, at the end of this file.
 //
 // What bounds it on the H100: bytes. The function reads grad_out once
 // (float32) and writes every gradient element once, in the features'
@@ -1043,6 +1044,263 @@ extern "C" int roi_align_backward(
                                      g, rois_per_image, channels, pool, 4)
               : launch_bwd<float, 1>(items, st, lv, b, lvl, fp, order, queue,
                                      g, rois_per_image, channels, pool, 1);
+  }
+  return static_cast<int>(err);
+}
+
+
+// ---------------------------------------------------------------------------
+// B1e: the gradient of the forward above with respect to the boxes.
+//
+// The JAX package has no Pallas kernel for it either: the small-object
+// heads' loss (object_detection_tracking_tpu/models/faster_rcnn.py
+// `_so_train_loss` :823) pools boxes decoded from the box head's output
+// through the exact gather (ops/roi_align.py:136-181), and XLA's autodiff
+// takes the gradient back into those boxes. Its spec here is autograd of
+// the plain `multilevel_roi_align` with respect to the boxes
+// (ops/roi_align.py `multilevel_roi_align_box_vjp`).
+//
+// The function. Sample (sy, sx) of a ROI's 2P x 2P grid sits at
+// iy(sy) = y0 / s + ((y1 - y0) / s / 2P) (sy + 0.5) - 0.5 on its level
+// (stride s), likewise ix(sx); an in-map sample is the bilinear mix of its
+// four clipped neighbours with fractions fy = iy - floor(iy), fx. Of all
+// that, only fy and fx carry a gradient (floor, the clipping and the
+// level's choice are piecewise constant), so with g = dL/dout of the
+// sample's bin and the 2x2 mean's 1/4:
+//   dL/diy(sy) = sum over its bins' samples and channels of
+//                g / 4 * (bot - top),   top = v00 (1 - fx) + v01 fx,
+//                                       bot = v10 (1 - fx) + v11 fx;
+//   dL/dix(sx) = sum of g / 4 * ((1 - fy)(v01 - v00) + fy (v11 - v10));
+// and then through the grid's linear dependence on the box, in the plain
+// autograd's order: with G = sum_s dL/di(s) and G' = sum_s dL/di(s) (s +
+// 0.5), dL/dlo = (G - G' / 2P) / s and dL/dhi = (G' / 2P) / s. A sample
+// outside the map adds nothing; one on the last row (iy = h - 1) has both
+// neighbours on that row, so its bot - top is 0, as in the plain version.
+//
+// The design. One block per ROI, as in the forward, whose sample placement
+// (`lane_samples`, `bin_taps`) and 16 neighbour loads per bin it reuses:
+// the warps stride over the P x P bins; a lane owns kVec channels and reads
+// their grad_out with the neighbours, and adds its share of the bin's four
+// samples' two sums in float32 registers; the warp reduces the eight sums by
+// shuffles, and lane 0 adds them into the warp's own row of shared sample
+// sums. After a barrier warp 0 adds the rows in warp order, takes the two
+// moments per axis and writes the ROI's 4 floats. No atomics, so two
+// launches agree bit for bit. Bytes bound it: grad_out read once (float32)
+// and the feature pixels the taps reach, as for the forward; what is
+// written is 16 bytes a ROI.
+
+namespace {
+
+// kVec float32 values of grad_out at p (16-byte loads on the vector path).
+template <int kVec>
+__device__ __forceinline__ void load_grad(const float* p, float (&g)[kVec]) {
+  if constexpr (kVec == 1) {
+    g[0] = __ldg(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; i += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+      g[i] = q.x; g[i + 1] = q.y; g[i + 2] = q.z; g[i + 3] = q.w;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads, 2) roi_align_box_grad_kernel(
+    Levels lv, const float* __restrict__ boxes,
+    const int* __restrict__ levels, const float* __restrict__ grad_out,
+    float* __restrict__ out, int rois_per_image, int c, int pool) {
+  using Ch = Chunk<T, kVec>;
+  __shared__ float sum_y[kWarps][64];   // dL/diy by sample, one row a warp
+  __shared__ float sum_x[kWarps][64];
+  const int roi = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int size2 = 2 * pool;
+  sum_y[warp][lane] = sum_y[warp][lane + 32] = 0.f;
+  sum_x[warp][lane] = sum_x[warp][lane + 32] = 0.f;
+  __syncwarp();
+
+  const int l = min(max(levels[roi], 0), lv.count - 1);
+  const int h = lv.h[l];
+  const int w = lv.w[l];
+  const float s = (float)lv.stride[l];
+  const LaneSamples ls = lane_samples(boxes + (size_t)roi * 4, s, h, w,
+                                      size2, lane);
+  const T* feat = static_cast<const T*>(lv.ptr[l]) +
+                  (size_t)(roi / rois_per_image) * h * w * c;
+  const float* g_roi = grad_out + (size_t)roi * pool * pool * c;
+  for (int bin = warp; bin < pool * pool; bin += kWarps) {   // warp-uniform
+    const int py = bin / pool;
+    const int px = bin - py * pool;
+    const BinTaps t = bin_taps(ls, py, px, h, w);
+    // the bin's samples (ky, kx): sum over the lane's channels of
+    // g * (bot - top) and of g * d/dix (with the 1/4 folded in t.wy)
+    float ay[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float ax[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    for (int c0 = lane * kVec; c0 < c; c0 += 32 * kVec) {
+      typename Ch::Raw raw[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int ky = q >> 3, kx = (q >> 2) & 1, ry = (q >> 1) & 1,
+                  rx = q & 1;
+        raw[q] = (t.yin[ky] && t.xin[kx])
+                     ? Ch::load(feat + (size_t)(t.row[ky][ry] + t.col[kx][rx])
+                                * c + c0)
+                     : typename Ch::Raw{};
+      }
+      float g[kVec];
+      load_grad<kVec>(g_roi + (size_t)bin * c + c0, g);
+#pragma unroll
+      for (int ky = 0; ky < 2; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < 2; ++kx) {
+          const int q = ky * 8 + kx * 4;   // corner (0, 0) of the sample
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            const float v00 = Ch::get(raw[q], j);
+            const float v01 = Ch::get(raw[q + 1], j);
+            const float v10 = Ch::get(raw[q + 2], j);
+            const float v11 = Ch::get(raw[q + 3], j);
+            const float top = v00 * t.wx[kx][0] + v01 * t.wx[kx][1];
+            const float bot = v10 * t.wx[kx][0] + v11 * t.wx[kx][1];
+            ay[ky][kx] = fmaf(g[j], bot - top, ay[ky][kx]);
+            const float dx = (v01 - v00) * t.wy[ky][0] +
+                             (v11 - v10) * t.wy[ky][1];
+            ax[ky][kx] = fmaf(g[j], dx, ax[ky][kx]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int ky = 0; ky < 2; ++ky) {
+#pragma unroll
+      for (int kx = 0; kx < 2; ++kx) {
+        ay[ky][kx] = warp_sum(ay[ky][kx]);
+        ax[ky][kx] = warp_sum(ax[ky][kx]);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        sum_y[warp][2 * py + k] += 0.25f * (ay[k][0] + ay[k][1]);
+        sum_x[warp][2 * px + k] += ax[0][k] + ax[1][k];
+      }
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // per axis, G = sum_s dL/di(s) and G' = sum_s dL/di(s) (s + 0.5); lane
+    // i holds samples i and i + 32
+    float m[4] = {0.f, 0.f, 0.f, 0.f};   // G_y, G'_y, G_x, G'_x
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = lane + 32 * k;
+      if (i < size2) {
+        float gy = 0.f, gx = 0.f;
+        for (int q = 0; q < kWarps; ++q) {
+          gy += sum_y[q][i];
+          gx += sum_x[q][i];
+        }
+        const float at = (float)i + 0.5f;
+        m[0] += gy;
+        m[1] = fmaf(gy, at, m[1]);
+        m[2] += gx;
+        m[3] = fmaf(gx, at, m[3]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = warp_sum(m[k]);
+    if (lane == 0) {
+      const float sp_y = __fdiv_rn(m[1], (float)size2);
+      const float sp_x = __fdiv_rn(m[3], (float)size2);
+      float* o = out + (size_t)roi * 4;
+      o[0] = __fdiv_rn(m[2] - sp_x, s);   // x0
+      o[1] = __fdiv_rn(m[0] - sp_y, s);   // y0
+      o[2] = __fdiv_rn(sp_x, s);          // x1
+      o[3] = __fdiv_rn(sp_y, s);          // y1
+    }
+  }
+}
+
+template <typename T, int kVec>
+cudaError_t launch_box_grad(const dim3& grid, cudaStream_t st,
+                            const Levels& lv, const float* b, const int* lvl,
+                            const float* g, float* o, int rois_per_image,
+                            int c, int pool) {
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      roi_align_box_grad_kernel<T, kVec>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxL1);
+  if (carveout != cudaSuccess) return carveout;
+  roi_align_box_grad_kernel<T, kVec><<<grid, kThreads, 0, st>>>(
+      lv, b, lvl, g, o, rois_per_image, c, pool);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The gradient of roi_align_forward (no `valid`) with respect to the
+// boxes. f0..f3: the four levels as in roi_align_forward (float32 or bf16);
+// boxes float32 [rois, 4] image coords; levels int32 (clamped into 0..3
+// here); grad_out float32 [rois, pool, pool, channels]; out float32
+// [rois, 4] (x0, y0, x1, y1), every element written. One block per ROI,
+// pool <= 32. The vector path needs channels a multiple of 8 (bf16) or 4
+// (float32) and every level and grad_out on 16 bytes; anything else runs
+// the scalar path. Launches on `stream`, returns the launch's cudaError_t.
+extern "C" int roi_align_box_grad(
+    const void* f0, const void* f1, const void* f2, const void* f3,
+    int h0, int w0, int h1, int w1, int h2, int w2, int h3, int w3,
+    int s0, int s1, int s2, int s3,
+    const void* boxes, const void* levels, const void* grad_out, void* out,
+    int num_images, int rois_per_image, int channels, int pool, int is_bf16,
+    void* stream) {
+  if (pool < 1 || pool > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const void* const fl[4] = {f0, f1, f2, f3};
+  const int hl[4] = {h0, h1, h2, h3};
+  const int wl[4] = {w0, w1, w2, w3};
+  const int sl[4] = {s0, s1, s2, s3};
+  Levels lv;
+  lv.count = 4;
+  bool aligned = aligned16(grad_out);
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const bool used = l < 4;
+    lv.ptr[l] = used ? fl[l] : nullptr;
+    lv.h[l] = used ? hl[l] : 0;
+    lv.w[l] = used ? wl[l] : 0;
+    lv.stride[l] = used ? sl[l] : 1;
+    aligned &= !used || aligned16(fl[l]);
+  }
+  const int n = num_images * rois_per_image;
+  if (n == 0) return 0;
+  const dim3 grid(n);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(boxes);
+  const int* lvl = static_cast<const int*>(levels);
+  const float* g = static_cast<const float*>(grad_out);
+  float* o = static_cast<float*>(out);
+  const bool vec = aligned && channels % (is_bf16 ? 8 : 4) == 0;
+  cudaError_t err;
+  if (is_bf16) {
+    err = vec ? launch_box_grad<__nv_bfloat16, 8>(grid, st, lv, b, lvl, g, o,
+                                                  rois_per_image, channels,
+                                                  pool)
+              : launch_box_grad<__nv_bfloat16, 1>(grid, st, lv, b, lvl, g, o,
+                                                  rois_per_image, channels,
+                                                  pool);
+  } else {
+    err = vec ? launch_box_grad<float, 4>(grid, st, lv, b, lvl, g, o,
+                                          rois_per_image, channels, pool)
+              : launch_box_grad<float, 1>(grid, st, lv, b, lvl, g, o,
+                                          rois_per_image, channels, pool);
   }
   return static_cast<int>(err);
 }

@@ -36,7 +36,20 @@ last blocks of c3-c5, whose groups then run unfused),
 ``use_conv_frcnn_head``, ``use_att_frcnn_head`` and ``add_relation_nn``
 (models/heads.py). The relation residuals see each image's proposals with
 their validity, so padded slots stay out of the attention (ROADMAP C14).
-``use_small_object_head`` is not ported (ROADMAP A8b) and raises.
+
+The small-object heads (``use_small_object_head``, JAX faster_rcnn.py:
+354-446, :823-866; reference models.py:592-691): per small-object (SO)
+class, the box head's decoded boxes are cut to R = ``result_per_im`` by
+NMS, pooled again (7x7, with the person references of
+``use_so_association`` in the same ROIAlign launch) through the shared
+fc6/fc7 in float32 whatever the compute dtype (JAX casts the features to
+float32 there), optionally attend to the ``so_person_topk`` person boxes
+(``person_object_relation``), and a per-class 2-way dense scores them.
+Inference returns ``so_final_*`` beside the main detections; training adds
+``so_label_loss``, whose gradient reaches the box head through the pooled
+boxes (ROIAlign's box gradient: kernel B1e on CUDA tensors) and through the
+relation's geometry. Padded slots (NMS dropouts, zero boxes) stay out of
+the relation's attention as in C14 (ROADMAP C18).
 
 ``extract_box_feat`` is the feature extractor alone: the backbone and one
 ROIAlign on the caller's boxes, mean-pooled.
@@ -60,7 +73,7 @@ from torch import nn
 
 from ..class_ids import coco_obj_class_to_id
 from ..ops import anchors as anchor_lib
-from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
+from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
 from ..ops.nms import nms, sort_desc_stable
 from ..ops.roi_align import (multilevel_roi_align, multilevel_roi_align_cuda,
                              multilevel_roi_align_trainable)
@@ -68,6 +81,8 @@ from ..train import losses as loss_lib
 from ..train import targets as target_lib
 from .fpn import FPN, RPNHead
 from .heads import FastRCNN2FCHead, MaskRCNNUp4ConvHead
+from .layers import dense
+from .relation import Relation, person_object_relation
 from .resnet import ResNet
 
 # ImageNet BGR mean/std (the host feeds cv2 BGR frames; models.py:340-352)
@@ -94,9 +109,9 @@ class FasterRCNNFPN(nn.Module):
         cfg = config
         self.config = cfg
         self.keep_full_box_feat = keep_full_box_feat
-        if cfg.use_small_object_head:
-            raise NotImplementedError(
-                "use_small_object_head is not ported yet (ROADMAP A8b)")
+        if cfg.use_small_object_head and cfg.use_conv_frcnn_head:
+            raise ValueError("the small-object heads reuse fc6/fc7, which "
+                             "the conv box head does not have")
         if cfg.roi_align_impl not in ("pallas", "xla"):
             raise ValueError(f"unknown roi_align_impl {cfg.roi_align_impl!r}")
         if cfg.backbone_impl not in ("pallas", "xla"):
@@ -122,6 +137,17 @@ class FasterRCNNFPN(nn.Module):
                                              cfg.fpn_num_channel,
                                              cfg.mrcnn_head_dim)
                          if cfg.add_mask else None)
+        self.so_ids = [cfg.classname2id[n] - 1 for n in cfg.small_objects
+                       if n in cfg.classname2id]
+        if cfg.use_small_object_head:   # JAX faster_rcnn.py:109-123
+            fc = cfg.fpn_frcnn_fc_head_dim
+            so = {f"small_object_classification_c{i + 1}": nn.Linear(fc, 2)
+                  for i in range(len(self.so_ids))}
+            if cfg.use_so_association:
+                so["person_object_relation"] = Relation(fc)
+            self.small_objects = nn.ModuleDict(so)
+        else:
+            self.small_objects = None
         # partial-class gather indices (models.py:805-829)
         if cfg.partial_classes:
             ids = [coco_obj_class_to_id[n] for n in cfg.partial_classes]
@@ -402,6 +428,9 @@ class FasterRCNNFPN(nn.Module):
         decoded = clip_boxes(decoded, (h, w))
         probs = torch.softmax(label_out, dim=-1)
 
+        so_out = ({} if self.small_objects is None else
+                  self._small_object_outputs(p23456, decoded, probs,
+                                             prop_valid, h, w))
         fb, fl, fp, fv, fci = self._predictions(decoded, probs, prop_valid)
         box_feat = self._roi_align_batched(p23456, fb, 7, valid=fv)
         out = {
@@ -414,6 +443,7 @@ class FasterRCNNFPN(nn.Module):
         }
         if self.keep_full_box_feat:
             out["fpn_box_feat"] = box_feat
+        out.update(so_out)
         if self.maskrcnn is not None:
             out["final_masks"] = self._masks(p23456, fb, fv, fci)
         return out
@@ -431,6 +461,133 @@ class FasterRCNNFPN(nn.Module):
         picked = torch.gather(
             logits, -1, sel[:, :, None, None, None].expand(b, r, 28, 28, 1))
         return torch.sigmoid(picked[..., 0])
+
+    # ------------------------------------------------------------------
+    # small-object heads
+
+    def _so_core(self, p23456, dec, probs, valid):
+        """JAX ``_so_core`` (faster_rcnn.py:354-407) batched over images and
+        SO classes, shared by inference and training. dec [B, K, C-1, 4]
+        clipped boxes (with their gradient in training), probs [B, K, C],
+        valid [B, K]. One NMS over [B, n_so, K] (scores ``probs[..., c+1]``,
+        no threshold) keeps R = result_per_im boxes a class, and one more
+        over the person column the ``so_person_topk`` references; one
+        7x7 ROIAlign of both through fc6/fc7 in float32; the person
+        relation over the valid slots (ROADMAP C18); a 2-way dense a class.
+        Returns (so_boxes [B, n_so, R, 4], so_valid [B, n_so, R], so_logits
+        [B, n_so, R, 2] float32)."""
+        cfg = self.config
+        r = cfg.result_per_im
+        n_so = len(self.so_ids)
+        b, k = dec.shape[:2]
+        ids = torch.tensor(self.so_ids, device=dec.device)
+        cand = dec[:, :, ids].transpose(1, 2)                 # [B, n_so, K, 4]
+        scores = probs[:, :, ids + 1].transpose(1, 2).detach()
+        idx, so_valid = nms(cand.detach(), scores, r,
+                            cfg.fastrcnn_nms_iou_thres,
+                            valid=valid[:, None, :].expand(b, n_so, k))
+        so_boxes = torch.where(so_valid[..., None],
+                               _gather_rows(cand, idx.clamp_min(0)), 0.0)
+        boxes = so_boxes.reshape(b, n_so * r, 4)
+        box_valid = so_valid.reshape(b, n_so * r)
+        if cfg.use_so_association:
+            pid = cfg.classname2id.get("Person", 1) - 1
+            person = dec[:, :, pid]
+            pidx, ref_valid = nms(person.detach(),
+                                  probs[:, :, pid + 1].detach(),
+                                  cfg.so_person_topk,
+                                  cfg.fastrcnn_nms_iou_thres, valid=valid)
+            ref_boxes = torch.where(ref_valid[..., None],
+                                    _gather_rows(person, pidx.clamp_min(0)),
+                                    0.0)
+            boxes = torch.cat([boxes, ref_boxes], 1)
+            box_valid = torch.cat([box_valid, ref_valid], 1)
+        hidden = self._so_fc(p23456, boxes.contiguous(), box_valid)
+        so_hidden = hidden[:, :n_so * r]
+        if cfg.use_so_association:
+            so_hidden = so_hidden + person_object_relation(
+                self.small_objects["person_object_relation"], so_hidden,
+                boxes[:, :n_so * r], ref_boxes, hidden[:, n_so * r:],
+                valid=so_valid.reshape(b, n_so * r), ref_valid=ref_valid)
+        so_hidden = so_hidden.reshape(b, n_so, r, -1)
+        so_logits = torch.stack([
+            dense(self.small_objects[f"small_object_classification_c{i + 1}"],
+                  so_hidden[:, i].reshape(b * r, -1)).reshape(b, r, 2)
+            for i in range(n_so)], 1)
+        return so_boxes, so_valid, so_logits
+
+    def _so_fc(self, p23456, boxes, valid):
+        """The SO heads' ``roi_head`` (JAX faster_rcnn.py:366-372): a 7x7
+        ROIAlign of boxes [B, N, 4] (kernel B1 in one launch; in training
+        the trainable version, whose backward also gives the boxes their
+        gradient) through fc6/fc7 with relu, all in float32. Returns
+        [B, N, fc_dim]. A padded slot is a zero box, whose samples all lie
+        outside the map, so its features are 0 with or without ``valid``."""
+        b, n = boxes.shape[:2]
+        rf = self._roi_align_batched(p23456, boxes, 7, valid=valid)
+        hid = torch.relu(dense(self.fastrcnn.fc6, rf.reshape(b * n, 7, 7, -1)))
+        return torch.relu(dense(self.fastrcnn.fc7, hid)).reshape(b, n, -1)
+
+    def _small_object_outputs(self, p23456, decoded, probs, prop_valid,
+                              h: int, w: int) -> Dict[str, torch.Tensor]:
+        """JAX ``_small_object_outputs`` (faster_rcnn.py:409-446): each
+        slot's [n_so + 1] label logits, the background averaged over the
+        classes; softmax; candidates that NMS dropped zeroed (and those at
+        or under ``result_score_thres`` with ``use_so_score_thres``); then
+        the per-class NMS and global top-R of ``_predictions`` with every
+        row valid. Returns so_final_boxes [B, R, 4], so_final_labels [B, R]
+        (1..n_so, indexing ``config.small_objects``' present names),
+        so_final_probs [B, R], so_final_valid [B, R]."""
+        cfg = self.config
+        so_boxes, so_valid, so_logits = self._so_core(p23456, decoded, probs,
+                                                      prop_valid)
+        bg = so_logits[..., 0].mean(1)                        # [B, R]
+        label_logits = torch.cat([bg[..., None],
+                                  so_logits[..., 1].transpose(1, 2)], -1)
+        so_probs = torch.softmax(label_logits, dim=-1)
+        boxes_t = clip_boxes(so_boxes.transpose(1, 2), (h, w))
+        every = torch.ones_like(bg, dtype=torch.bool)
+        keep = torch.cat([every[..., None], so_valid.transpose(1, 2)], -1)
+        so_probs = torch.where(keep, so_probs, 0.0)
+        if cfg.use_so_score_thres:
+            so_probs = torch.where(so_probs > cfg.result_score_thres,
+                                   so_probs, 0.0)
+        fb, fl, fp, fv, _ = self._predictions(boxes_t, so_probs, every)
+        return {"so_final_boxes": fb, "so_final_labels": fl,
+                "so_final_probs": fp, "so_final_valid": fv}
+
+    def _so_train_loss(self, p23456, roi_boxes, roi_valid, label_out,
+                       box_out, gt_boxes, gt_labels, gt_valid, h: int,
+                       w: int) -> torch.Tensor:
+        """JAX ``_so_train_loss`` (faster_rcnn.py:823-866): the SO
+        candidates rebuilt from the box head's outputs (their gradient
+        kept), each labelled fg where its IOU with a gt box of its class is
+        at least ``fastrcnn_fg_thres``; softmax CE over each class's valid
+        rows, averaged over the classes, then over the images."""
+        cfg = self.config
+        reg_w = torch.tensor(cfg.fastrcnn_bbox_reg_weights,
+                             dtype=torch.float32, device=box_out.device)
+        box_full = box_out
+        if cfg.use_frcnn_class_agnostic:
+            box_full = box_out.expand(*box_out.shape[:2], cfg.num_class - 1,
+                                      4)
+        decoded = clip_boxes(decode_boxes(box_full / reg_w,
+                                          roi_boxes[:, :, None, :],
+                                          cfg.bbox_decode_clip), (h, w))
+        probs = torch.softmax(label_out, dim=-1)
+        so_boxes, so_valid, so_logits = self._so_core(p23456, decoded, probs,
+                                                      roi_valid)
+        total = 0.0
+        for i, c in enumerate(self.so_ids):
+            cls_gt = gt_valid & (gt_labels == c + 1)           # [B, G]
+            iou = pairwise_iou(so_boxes[:, i].detach(), gt_boxes)
+            iou = torch.where(cls_gt[:, None, :], iou, 0.0)
+            lab = (iou.max(-1).values >= cfg.fastrcnn_fg_thres).long()
+            ce = loss_lib.softmax_ce(so_logits[:, i], lab)     # [B, R]
+            n_valid = so_valid[:, i].sum(-1).clamp_min(1)
+            total = total + torch.where(so_valid[:, i], ce, 0.0).sum(-1) \
+                / n_valid
+        return (total / len(self.so_ids)).mean()
 
     @torch.inference_mode()
     def extract_box_feat(self, images: torch.Tensor, boxes: torch.Tensor
@@ -518,6 +675,10 @@ class FasterRCNNFPN(nn.Module):
             samples["fg"], use_focal=cfg.focal_loss)
 
         losses = {k: v.mean() for k, v in {**rpn_loss, **frcnn_loss}.items()}
+        if self.small_objects is not None:
+            losses["so_label_loss"] = self._so_train_loss(
+                p23456, roi_boxes, samples["valid"], label_out, box_out,
+                gt_boxes, gt_labels, gt_valid, h, w)
         if self.maskrcnn is not None and gt_masks is not None:
             losses["mrcnn_loss"] = self._mask_train_loss(
                 p23456, roi_boxes, samples, gt_masks)

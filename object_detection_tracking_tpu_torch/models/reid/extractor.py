@@ -28,8 +28,14 @@ import torch
 import torch.nn.functional as F
 
 from .common import ReIDNet
+from .densenet_reid import DenseNetReID
+from .ibn_reid import IBNReID
+from .mobilenetv2 import MobileNetV2ReID
 from .osnet import OSNet, OSNetAIN
 from .resnet_reid import ResNetReID
+from .senet_reid import SENetReID
+from .shufflenet_reid import ShuffleNetV2ReID
+from .squeezenet_reid import SqueezeNetReID
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -41,18 +47,24 @@ MODELS["osnet_ain_x1_0"] = OSNetAIN
 MODELS.update({name: partial(ResNetReID, name) for name in (
     "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
     "resnext50_32x4d", "resnext101_32x8d", "resnet50_fc512")})
+for _net, _names in (
+        (SENetReID, ("se_resnet50", "se_resnet50_fc512", "se_resnet101",
+                     "se_resnext50_32x4d", "se_resnext101_32x4d")),
+        (IBNReID, ("resnet50_ibn_a", "resnet50_ibn_b")),
+        (MobileNetV2ReID, ("mobilenetv2_x1_0", "mobilenetv2_x1_4")),
+        (DenseNetReID, ("densenet121", "densenet169", "densenet201",
+                        "densenet161", "densenet121_fc512")),
+        (SqueezeNetReID, ("squeezenet1_0", "squeezenet1_0_fc512",
+                          "squeezenet1_1")),
+        (ShuffleNetV2ReID, ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
+                            "shufflenet_v2_x1_5", "shufflenet_v2_x2_0"))):
+    MODELS.update({name: partial(_net, name) for name in _names})
 
 # the JAX registry's other names (extractor.py:46-102), not ported yet
 NOT_PORTED = (
-    "mobilenetv2_x1_0", "mobilenetv2_x1_4", "se_resnet50",
-    "se_resnet50_fc512", "se_resnet101", "se_resnext50_32x4d",
-    "se_resnext101_32x4d", "resnet50_ibn_a", "resnet50_ibn_b",
-    "densenet121", "densenet169", "densenet201", "densenet161",
-    "densenet121_fc512", "squeezenet1_0", "squeezenet1_0_fc512",
-    "squeezenet1_1", "shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
-    "shufflenet_v2_x1_5", "shufflenet_v2_x2_0", "pcb_p6", "pcb_p4", "mlfn",
-    "resnet50mid", "shufflenet", "hacnn", "mudeep", "xception",
-    "inceptionv4", "inceptionresnetv2", "nasnetamobile", "nasnsetmobile")
+    "pcb_p6", "pcb_p4", "mlfn", "resnet50mid", "shufflenet", "hacnn",
+    "mudeep", "xception", "inceptionv4", "inceptionresnetv2",
+    "nasnetamobile", "nasnsetmobile")
 
 # models with a hard input-size requirement (an assert in torchreid)
 FIXED_IMAGE_SIZE = {"hacnn": (160, 64), "mudeep": (256, 128)}

@@ -57,18 +57,24 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """torchvision's Bottleneck: the stride and the groups on the 3x3."""
+    """torchvision's Bottleneck: the stride and the groups on the 3x3, or
+    with ``stride_1x1`` the stride on conv1 (SENet's se_resnet). A subclass
+    may set ``se_module`` (scales the branch before the residual add) or
+    ``IN`` (a norm after the add, before the ReLU): the SE and IBN nets'
+    blocks."""
 
     expansion = 4
 
     def __init__(self, c_in: int, planes: int, stride: int = 1,
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64,
+                 stride_1x1: bool = False):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         c_out = planes * self.expansion
-        self.conv1 = nn.Conv2d(c_in, width, 1, bias=False)
+        s1, s2 = (stride, 1) if stride_1x1 else (1, stride)
+        self.conv1 = nn.Conv2d(c_in, width, 1, s1, bias=False)
         self.bn1 = nn.BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups,
+        self.conv2 = nn.Conv2d(width, width, 3, s2, 1, groups=groups,
                                bias=False)
         self.bn2 = nn.BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, c_out, 1, bias=False)
@@ -76,13 +82,19 @@ class Bottleneck(nn.Module):
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (_downsample(c_in, c_out, stride)
                            if stride != 1 or c_in != c_out else None)
+        self.se_module = None
+        self.IN = None
 
     def forward(self, x):
         out = self.relu(self.bn1(self.conv1(x)))
         out = self.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return self.relu(out + identity)
+        if self.se_module is not None:
+            out = self.se_module(out)
+        out = out + (x if self.downsample is None else self.downsample(x))
+        if self.IN is not None:
+            out = self.IN(out)
+        return self.relu(out)
 
 
 class ResNetReID(ReIDNet):

@@ -4,22 +4,24 @@ reference nn.py:115-330).
 
 ``relation_network``: grouped attention among one image's ROI features
 with a log-geometric prior; ``person_object_relation``: the same from K
-query boxes to R reference boxes (the small-object association head, which
-is not ported yet: ROADMAP A8b). Batched here: [B, K, D] features and
+query boxes to R reference boxes (the small-object association head of
+models/faster_rcnn.py ``_so_core``). Batched here: [B, K, D] features and
 [B, K, 4] boxes, each image attending within itself.
 
-Padded slots (ROADMAP C14). The JAX model feeds the head every proposal
-slot, and an invalid slot holds a zero box: ``geometric_encoding`` divides
-by its width, and the NaN reaches every query's softmax, so one padded
-slot makes the whole image's head NaN. The reference feeds only the NMS
-survivors (a dynamic count). ``relation_attend`` takes the references'
+Padded slots (ROADMAP C14, C18). The JAX model feeds the head every
+proposal slot, and an invalid slot holds a zero box: ``geometric_encoding``
+divides by its width, and the NaN reaches every query's softmax, so one
+padded slot makes the whole image's head NaN. The reference feeds only the
+NMS survivors (a dynamic count). ``relation_attend`` takes the references'
 validity and leaves padded slots out of every softmax; a padded query's
-own row gets 0. Where every slot is valid this is JAX's function; where
-some are padding, each valid row equals JAX's ``relation_network`` on the
-valid boxes alone. Padded boxes are replaced by unit boxes before the
-encoding, so no NaN or inf reaches the graph (autograd would turn a masked
-one into a NaN gradient). A valid box of zero width or height is not
-guarded, as in JAX.
+own row gets 0, and so does every row of an image with no valid reference
+(no reference, no message). Where every slot is valid this is JAX's
+function; where some are padding, each valid row equals JAX's on the valid
+boxes alone. Padded boxes are replaced by unit boxes before the encoding,
+and an image without a valid reference keeps its (unit-box) references in
+the softmax before its rows are zeroed, so no NaN or inf reaches the graph
+(autograd would turn a masked one into a NaN gradient). A valid box of
+zero width or height is not guarded, as in JAX.
 
 Types as in JAX under a bfloat16 head: the geometry and the attention
 weights are float32 (the boxes are), the query/key logits in the
@@ -106,8 +108,10 @@ def relation_attend(p: Relation, feat: torch.Tensor, boxes: torch.Tensor,
     logits = torch.einsum("bkgd,brgd->bkgr", q, kk) / math.sqrt(gd)
     logits = torch.log(geo_w) + logits.float()                   # [B,K,G,R]
     if ref_valid is not None:
-        logits = logits.masked_fill(~ref_valid[:, None, None, :],
-                                    float("-inf"))
+        any_ref = ref_valid.any(-1, keepdim=True)                # [B, 1]
+        drop = ~ref_valid & any_ref
+        logits = logits.masked_fill(drop[:, None, None, :], float("-inf"))
+        valid = (any_ref if valid is None else valid & any_ref).expand(b, k)
     weighted = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgr,brd->bkgd", weighted, ref_feat.float())
     out = _linear(p.output_linear, out.reshape(b, k, group * d))
@@ -123,9 +127,9 @@ def relation_network(p: Relation, feat: torch.Tensor, boxes: torch.Tensor,
 
 
 def person_object_relation(p: Relation, feat, boxes, ref_boxes, ref_feat,
+                           valid: Optional[torch.Tensor] = None,
                            ref_valid: Optional[torch.Tensor] = None):
     """K small-object queries attending to R person boxes (JAX
-    relation.py:92-94); the small-object heads that call it are ROADMAP
-    A8b."""
-    return relation_attend(p, feat, boxes, ref_feat, ref_boxes,
-                           ref_valid=ref_valid)
+    relation.py:92-94), over the valid slots of each (module note)."""
+    return relation_attend(p, feat, boxes, ref_feat, ref_boxes, valid,
+                           ref_valid)

@@ -2,7 +2,8 @@
 wrapper (port of object_detection_tracking_tpu/ops/roi_align.py and of the
 Pallas kernel ops/pallas/roi_align_pallas.py), and the trainable version
 (``multilevel_roi_align_trainable``, JAX roi_align_pallas.py:584-610): the
-forward kernel B1 with the backward kernel B1b, both in csrc/roi_align.cu.
+forward kernel B1 with the backward kernels B1b (the features' gradient)
+and B1e (the boxes' gradient), all in csrc/roi_align.cu.
 
 Semantics are exact ``tf.image.crop_and_resize`` fpcoor sampling
 (reference nn.py:1229-1335): for output pixel i of a crop of size S over
@@ -161,6 +162,27 @@ def multilevel_roi_align_vjp(features: Sequence[torch.Tensor],
         return list(torch.autograd.grad(out, feats, grad_out))
 
 
+def multilevel_roi_align_box_vjp(features: Sequence[torch.Tensor],
+                                 boxes: torch.Tensor, strides: Sequence[int],
+                                 output_size: int, grad_out: torch.Tensor,
+                                 levels: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """The gradient of ``multilevel_roi_align`` (no ``valid``) with respect
+    to the boxes, by autograd of the plain version: kernel B1e's spec and
+    its CPU path, the box half of the VJP whose feature half is
+    ``multilevel_roi_align_vjp`` (JAX gets it from XLA's autodiff of the
+    exact gather, ops/roi_align.py:136-181). It flows through the bilinear
+    fractions ``iy - floor(iy)`` and ``ix - floor(ix)`` of the in-map
+    samples and through the fpcoor grid's linear dependence on the box and
+    the level's stride; the level's choice (a floor) and the clipped corner
+    indices carry none. Returns float32 [B, N, 4]."""
+    with torch.enable_grad():
+        bx = boxes.detach().float().requires_grad_(True)
+        out = multilevel_roi_align([f.detach() for f in features], bx,
+                                   strides, output_size, levels=levels)
+        return torch.autograd.grad(out, bx, grad_out)[0]
+
+
 def roi_tap_footprint(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                       strides: Sequence[int], output_size: int,
                       levels: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -252,6 +274,31 @@ def _check_cuda_args(features, boxes, strides, output_size, max_levels):
     return b, n, c, dtype
 
 
+def _check_grad_args(kernel, features, boxes, strides, output_size,
+                     grad_out, levels):
+    """The gradient kernels' (B1b, B1e) argument checks on top of
+    ``_check_cuda_args``: four levels, grad_out float32 [B, N, P, P, C] on
+    the boxes' device, levels [B, N] there (canonical when None). Returns
+    (b, n, c, dtype, contiguous grad_out, int32 levels)."""
+    if len(features) != 4:
+        raise ValueError(f"{kernel} takes exactly 4 levels (p2..p5), got "
+                         f"{len(features)}")
+    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size,
+                                      4)
+    p = output_size
+    if grad_out.shape != (b, n, p, p, c) or grad_out.dtype != torch.float32 \
+            or grad_out.device != boxes.device:
+        raise ValueError(f"grad_out must be float32 [B, N, P, P, C] = "
+                         f"{(b, n, p, p, c)} on the boxes' device")
+    lvl = fpn_map_rois_to_levels(boxes) if levels is None else levels
+    if lvl.shape != (b, n) or lvl.device != boxes.device:
+        raise ValueError(f"levels must be [B, N] = {(b, n)} on the boxes' "
+                         f"device")
+    # the kernels clamp the levels into 0..3
+    return (b, n, c, dtype, grad_out.contiguous(),
+            lvl.to(torch.int32).contiguous())
+
+
 def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
                               boxes: torch.Tensor, strides: Sequence[int],
                               output_size: int,
@@ -324,22 +371,10 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
     if boxes.device.type == "cpu":
         return multilevel_roi_align_vjp(features, boxes, strides, output_size,
                                         grad_out, levels=levels)
-    if len(features) != 4:
-        raise ValueError(f"the backward kernel (B1b) takes exactly 4 levels "
-                         f"(p2..p5), got {len(features)}")
-    b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size,
-                                      4)
+    b, n, c, dtype, grad_out, lvl = _check_grad_args(
+        "the backward kernel (B1b)", features, boxes, strides, output_size,
+        grad_out, levels)
     p = output_size
-    if grad_out.shape != (b, n, p, p, c) or grad_out.dtype != torch.float32 \
-            or grad_out.device != boxes.device:
-        raise ValueError(f"grad_out must be float32 [B, N, P, P, C] = "
-                         f"{(b, n, p, p, c)} on the boxes' device")
-    grad_out = grad_out.contiguous()
-    lvl = fpn_map_rois_to_levels(boxes) if levels is None else levels
-    if lvl.shape != (b, n) or lvl.device != boxes.device:
-        raise ValueError(f"levels must be [B, N] = {(b, n)} on the boxes' "
-                         f"device")
-    lvl = lvl.to(torch.int32).contiguous()   # the kernel clamps into 0..3
     sizes = [b * f.shape[1] * f.shape[2] * c for f in features]
     out = torch.empty(sum(sizes), dtype=dtype, device=boxes.device)
     grads = [g.view(f.shape) for g, f in zip(out.split(sizes), features)]
@@ -369,11 +404,58 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
 
 multilevel_roi_align_backward_cuda.launches = 0
 
+_BOX_ARGTYPES = [_P] * 4 + [_I] * 12 + [_P] * 4 + [_I] * 5 + [_P]
+
+
+def multilevel_roi_align_box_grad_cuda(features: Sequence[torch.Tensor],
+                                       boxes: torch.Tensor,
+                                       strides: Sequence[int],
+                                       output_size: int,
+                                       grad_out: torch.Tensor,
+                                       levels: Optional[torch.Tensor] = None
+                                       ) -> torch.Tensor:
+    """The gradient of the ROIAlign forward (no ``valid``) with respect to
+    the boxes through the hand-written CUDA kernel B1e; same arguments and
+    result as ``multilevel_roi_align_box_vjp``. A CPU tensor takes that
+    plain version; a CUDA tensor launches the kernel on the current stream
+    (one block per ROI; no sync, no scratch) or raises. Bitwise the same
+    from run to run. ``multilevel_roi_align_box_grad_cuda.launches`` counts
+    the launches."""
+    if boxes.device.type == "cpu":
+        return multilevel_roi_align_box_vjp(features, boxes, strides,
+                                            output_size, grad_out,
+                                            levels=levels)
+    b, n, c, dtype, grad_out, lvl = _check_grad_args(
+        "the box-gradient kernel (B1e)", features, boxes, strides,
+        output_size, grad_out, levels)
+    p = output_size
+    out = torch.empty((b, n, 4), dtype=torch.float32, device=boxes.device)
+    if b * n == 0:
+        return out
+    dims = []
+    for f in features:
+        dims += [f.shape[1], f.shape[2]]
+    err = _cuda_fn("roi_align_box_grad", _BOX_ARGTYPES)(
+        *[f.data_ptr() for f in features], *dims,
+        *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
+        grad_out.data_ptr(), out.data_ptr(), b, n, c, p,
+        int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(boxes.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"roi_align box-gradient kernel launch failed: CUDA error {err}")
+    multilevel_roi_align_box_grad_cuda.launches += 1
+    return out
+
+
+multilevel_roi_align_box_grad_cuda.launches = 0
+
 
 class _TrainableROIAlign(torch.autograd.Function):
     """Forward through ``multilevel_roi_align_cuda`` (B1), backward through
-    ``multilevel_roi_align_backward_cuda`` (B1b), both looked up at call
-    time; each takes its plain version for CPU tensors."""
+    ``multilevel_roi_align_backward_cuda`` (B1b) and, for boxes that
+    require grad, ``multilevel_roi_align_box_grad_cuda`` (B1e), all looked
+    up at call time; each takes its plain version for CPU tensors."""
 
     @staticmethod
     def forward(ctx, boxes, strides, output_size, *features):
@@ -389,7 +471,12 @@ class _TrainableROIAlign(torch.autograd.Function):
         grads = multilevel_roi_align_backward_cuda(
             features, boxes, ctx.strides, ctx.output_size, grad_out,
             levels=levels)
-        return (None, None, None, *grads)
+        grad_boxes = None
+        if ctx.needs_input_grad[0]:
+            grad_boxes = multilevel_roi_align_box_grad_cuda(
+                features, boxes, ctx.strides, ctx.output_size, grad_out,
+                levels=levels)
+        return (grad_boxes, None, None, *grads)
 
 
 def multilevel_roi_align_trainable(features: Sequence[torch.Tensor],
@@ -399,15 +486,16 @@ def multilevel_roi_align_trainable(features: Sequence[torch.Tensor],
     """Differentiable FPN ROIAlign (JAX ``multilevel_roi_align_trainable``,
     roi_align_pallas.py:584-610): the same result as
     ``multilevel_roi_align`` without ``valid``, with gradients to the
-    features. On CUDA tensors the forward is kernel B1 and the backward
-    kernel B1b; on CPU tensors both are the plain version and its autograd.
+    features and, where the boxes require grad, to the boxes. On CUDA
+    tensors the forward is kernel B1, the features' gradient kernel B1b and
+    the boxes' kernel B1e; on CPU tensors all are the plain version and
+    its autograd.
 
-    No gradient reaches the boxes. JAX's ``_mra_bwd`` returns one, but on
-    the training path nothing consumes it: the proposals are cut by
-    ``stop_gradient`` (faster_rcnn.py:735) and the gt rows are inputs. So
-    boxes that require grad raise here rather than silently get none."""
-    if boxes.requires_grad:
-        raise ValueError("multilevel_roi_align_trainable gives no gradient "
-                         "to the boxes; pass detached boxes")
+    The box head's and the mask head's boxes come detached (the proposals
+    are cut by ``stop_gradient``, JAX faster_rcnn.py:735, and the gt rows
+    are inputs), so their launches compute no box gradient. The
+    small-object heads pool boxes decoded from the box head's output, and
+    JAX's autodiff takes the loss's gradient back through them: there B1e
+    runs after B1b."""
     return _TrainableROIAlign.apply(boxes, tuple(int(s) for s in strides),
                                     output_size, *features)

@@ -112,7 +112,8 @@ def params_to_jax(model: nn.Module) -> Tree:
 
 # the roots of the native trees by model name: Faster/Mask R-CNN (one
 # model class), EfficientDet
-_RCNN_ROOTS = ("resnet/", "fpn/", "rpn/", "fastrcnn/", "maskrcnn/")
+_RCNN_ROOTS = ("resnet/", "fpn/", "rpn/", "fastrcnn/", "maskrcnn/",
+               "small_objects/")
 _NATIVE_ROOTS = {
     "faster_rcnn": _RCNN_ROOTS,
     "mask_rcnn": _RCNN_ROOTS,
@@ -290,9 +291,6 @@ def init_params(config, seed: int = 0, model_name: str = "faster_rcnn"
     cfg = config
     if model_name == "efficientdet":
         return _init_efficientdet(_Init(seed), cfg)
-    if cfg.use_small_object_head:
-        raise NotImplementedError(
-            "use_small_object_head is not ported yet (ROADMAP A8b)")
     init = _Init(seed)
     c_channels = ((64, 128, 256, 512) if cfg.use_basic_block
                   else (256, 512, 1024, 2048))
@@ -343,7 +341,30 @@ def init_params(config, seed: int = 0, model_name: str = "faster_rcnn"
         mask["conv"] = init.conv(1, hd, cfg.num_class - 1,
                                  w_init="msra_fanout")
         tree["maskrcnn"] = mask
+    if cfg.use_small_object_head:
+        tree["small_objects"] = _init_small_objects(init, cfg)
     return tree
+
+
+def _init_small_objects(init: _Init, cfg) -> Tree:
+    """JAX faster_rcnn.py:109-123: a 2-way dense a small-object class, and
+    the person relation with ``use_so_association``."""
+    fc = cfg.fpn_frcnn_fc_head_dim
+    so: Tree = {}
+    names = [n for n in cfg.small_objects if n in cfg.classname2id]
+    for i in range(len(names)):
+        so[f"small_object_classification_c{i + 1}"] = init.dense(
+            fc, 2, "normal", 0.01)
+    if cfg.use_so_association:
+        so["person_object_relation"] = _init_relation(init, fc)
+    return so
+
+
+def init_small_objects(config, seed: int = 0) -> Tree:
+    """The ``small_objects`` subtree alone, drawn from its own generator
+    seeded with ``seed``: the heads' leaves for a detector tree drawn
+    without them."""
+    return _init_small_objects(_Init(seed), config)
 
 
 def _init_efficientnet(init: _Init, model_name: str) -> Tree:

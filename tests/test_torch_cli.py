@@ -163,8 +163,8 @@ def test_segmentation_matches_jax_cli(run_both):
 def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path):
     """The A12 flags raise; the five architecture options (ported) reach
     the configuration as JAX's build_config forwards them, and the
-    small-object head, which no flag turns on, is refused by the model
-    naming A8b."""
+    small-object head, which no flag of this CLI turns on (as in JAX),
+    builds once the configuration asks for it (A8b, ported)."""
     base = ["--video_dir", str(tmp_path), "--video_lst_file", "x"]
     for flag in ("--use_lijun_video_loader", "--log_time_and_gpu"):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
@@ -178,8 +178,10 @@ def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path):
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.use_deformable and got.add_relation_nn
     from object_detection_tracking_tpu_torch.models import get_model
-    with pytest.raises(NotImplementedError, match="A8b"):
-        get_model(dataclasses.replace(got, use_small_object_head=True))
+    so = get_model(dataclasses.replace(got, use_small_object_head=True,
+                                       use_conv_frcnn_head=False))
+    assert len(so.small_objects) == len(so.so_ids) == 3   # ActEV's SO names
+    assert not hasattr(tcli.get_args(base), "use_small_object_head")
     args = tcli.get_args(base + ["--tracker", "tmot"])
     assert args.tracker == "tmot"
     assert (args.track_max_second_lost, args.emb_max_dist) == (4.0, 0.7)

@@ -335,8 +335,20 @@ def flat_shapes(tree, prefix=""):
 
 
 def test_small_object_head_refused_naming_a8b():
-    cfg = PortConfig(use_small_object_head=True)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        get_model(cfg)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        init_params(cfg)
+    """The small-object heads, once refused naming ROADMAP A8b, are
+    ported: the default configuration (at R18) with use_small_object_head
+    (and the person association) builds a model with JAX's small_objects
+    tree, whose leaves init_params draws with JAX's names and shapes.
+    tests/test_torch_small_object.py holds their outputs to JAX's."""
+    for assoc in (False, True):
+        cfg = PortConfig(use_small_object_head=True, resnet_depth=18,
+                         use_so_association=assoc)
+        model = get_model(cfg)
+        tree = init_params(cfg)
+        jcfg = DetectorConfig(**dataclasses.asdict(cfg))
+        ref = jax.eval_shape(jax_model(jcfg).init_params,
+                             jax.random.PRNGKey(0))
+        assert {k: tuple(v.shape) for k, v in flat(tree).items()} == \
+            {k: tuple(v.shape) for k, v in flat_shapes(ref).items()}
+        assert set(model.small_objects) == set(tree["small_objects"])
+        params_from_jax(tree, model)

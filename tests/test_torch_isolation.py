@@ -112,6 +112,15 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "compute_dtype='float32', device='cpu')\n"
         "f = ex([np.zeros((40, 20, 3), np.uint8)])\n"
         "assert f.shape == (1, 512) and np.isfinite(f).all(), f\n"
+        "for name in ('se_resnet50', 'squeezenet1_1'):\n"
+        "    build_reid_model(name)\n"
+        "cfg = DetectorConfig(num_class=16, resnet_depth=18, "
+        "short_edge_size=32, max_size=64, rpn_test_post_nms_topk=16, "
+        "result_per_im=4, so_person_topk=2, compute_dtype='float32', "
+        "fpn_frcnn_fc_head_dim=64, use_small_object_head=True, "
+        "use_so_association=True)\n"
+        "m = params_from_jax(init_params(cfg), get_model(cfg))\n"
+        "assert torch.isfinite(m(img)['so_final_probs']).all()\n"
         f"bad = [m for m, v in sys.modules.items() if v is not None and "
         f"(m == 'jax' or m.startswith('jax.') or m == '{JAX_PKG}' or "
         f"m.startswith('{JAX_PKG}.'))]\n"
@@ -177,7 +186,11 @@ def test_no_source_imports_or_reads_the_jax_package():
             "object_detection_tracking_tpu_torch/cli/obj_detect_imgs.py",
             "object_detection_tracking_tpu_torch/data/datasets.py",
             "object_detection_tracking_tpu_torch/models/deformable.py",
-            "object_detection_tracking_tpu_torch/models/relation.py"
+            "object_detection_tracking_tpu_torch/models/relation.py",
+            *(f"object_detection_tracking_tpu_torch/models/reid/{m}.py"
+              for m in ("senet_reid", "ibn_reid", "mobilenetv2",
+                        "densenet_reid", "squeezenet_reid",
+                        "shufflenet_reid"))
             } <= scanned
 
 

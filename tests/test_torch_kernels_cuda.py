@@ -17,7 +17,11 @@ gradients within 1e-5 of the level's largest magnitude (the same products,
 added in another order: the kernel's is fixed, so two launches agree bit
 for bit); bf16 gradients are those float32 sums rounded once, so two sums
 a hair apart may round to neighbouring bf16 values: within one bf16 step
-(2^-7 of the value) plus that float32 bound."""
+(2^-7 of the value) plus that float32 bound. ROIAlign's box gradient
+(B1e) against autograd of the plain version with respect to the boxes:
+within 1e-4 of the largest |plain| (float32 sums over 2P samples of
+C channels of four taps, in another fixed order; the features' dtype does
+not change the products, bf16 converts exactly)."""
 
 import dataclasses
 
@@ -656,26 +660,94 @@ def test_roi_align_backward_kernel_is_deterministic(cuda, dtype, case):
                                   else torch.int32))
 
 
+# --------------------------------------------------------------------------
+# B1e: the ROIAlign box-gradient kernel
+
+
+def box_grad_check(feats, boxes, pool, seed=5):
+    """B1e against autograd of the plain version on one upstream gradient;
+    returns the kernel's gradient."""
+    b, n = boxes.shape[:2]
+    c = feats[0].shape[-1]
+    g = torch.from_numpy(np.random.RandomState(seed).randn(
+        b, n, pool, pool, c).astype(np.float32)).to(boxes.device)
+    lvl = RA.fpn_map_rois_to_levels(boxes)
+    before = RA.multilevel_roi_align_box_grad_cuda.launches
+    got = RA.multilevel_roi_align_box_grad_cuda(feats, boxes, STRIDES, pool,
+                                                g, levels=lvl)
+    torch.cuda.synchronize()
+    # no ROI, no launch
+    assert RA.multilevel_roi_align_box_grad_cuda.launches == before + (
+        1 if b * n else 0)
+    ref = RA.multilevel_roi_align_box_vjp(feats, boxes, STRIDES, pool, g,
+                                          levels=lvl)
+    assert got.shape == ref.shape == (b, n, 4) and got.dtype == torch.float32
+    if b * n == 0:
+        return got
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 1e-4 * ref.abs().max().item()).all()
+    again = RA.multilevel_roi_align_box_grad_cuda(feats, boxes, STRIDES,
+                                                  pool, g, levels=lvl)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool,n,case", [
+    (7, 300, "c256"), (14, 37, "c256"),
+    (7, 40, "c36"),          # float32 vector path, bf16 scalar path
+    (7, 40, "c30"),          # C off the vector width: the scalar path
+    (7, 40, "off16"),        # levels off 16 bytes: the scalar path
+    (7, 64, "p2_edge"),      # aspect-5 boxes over p2's edge at 1088x1920
+    (7, 10, "last_row_col"),  # samples on row H-1 and column W-1
+    (14, 4, "p5_whole"),
+    (7, 0, "n0"),
+])
+def test_roi_align_box_grad_kernel_matches_plain(cuda, dtype, pool, n, case):
+    dt = getattr(torch, dtype)
+    if case == "p2_edge":
+        feats, boxes, _ = p2_edge_inputs(cuda, dt, n)
+    elif case in ("p5_whole", "last_row_col"):
+        boxes = tile_edge_boxes(case, cuda)
+        assert boxes.shape[1] == n
+        feats = pyramid(cuda, dt, *((70, 100) if case == "last_row_col"
+                                    else (272, 480)))
+    else:
+        c = {"c36": 36, "c30": 30}.get(case, 256)
+        feats, boxes, _ = inputs(cuda, dt, n=n, c=c)
+        if case == "off16":
+            feats = [off16(f) for f in feats]
+    got = box_grad_check(feats, boxes, pool)
+    if n:
+        assert got.abs().max() > 0
+
+
 @pytest.mark.cuda
 def test_trainable_roi_align_runs_both_kernels(cuda):
     """multilevel_roi_align_trainable on CUDA tensors: B1 forward, B1b
     backward, feature gradients as autograd of the plain version; boxes
-    that require grad raise."""
+    that require grad also get theirs, from B1e, as autograd of the plain
+    version; detached boxes launch no B1e."""
     feats, boxes, _ = inputs(cuda, torch.float32, n=50)
     feats = [f.requires_grad_(True) for f in feats]
-    f0, b0 = RA.multilevel_roi_align_cuda.launches, \
-        RA.multilevel_roi_align_backward_cuda.launches
+    f0, b0, e0 = RA.multilevel_roi_align_cuda.launches, \
+        RA.multilevel_roi_align_backward_cuda.launches, \
+        RA.multilevel_roi_align_box_grad_cuda.launches
     out = RA.multilevel_roi_align_trainable(feats, boxes, STRIDES, 7)
     g = torch.randn_like(out)
     out.backward(g)
     assert RA.multilevel_roi_align_cuda.launches == f0 + 1
     assert RA.multilevel_roi_align_backward_cuda.launches == b0 + 1
+    assert RA.multilevel_roi_align_box_grad_cuda.launches == e0
     ref = RA.multilevel_roi_align_vjp(feats, boxes, STRIDES, 7, g)
     for f, r in zip(feats, ref):
         assert (f.grad - r).abs().max() <= 1e-5 * r.abs().max()
-    with pytest.raises(ValueError):
-        RA.multilevel_roi_align_trainable(
-            feats, boxes.clone().requires_grad_(True), STRIDES, 7)
+    bx = boxes.clone().requires_grad_(True)
+    RA.multilevel_roi_align_trainable(feats, bx, STRIDES, 7).backward(g)
+    assert RA.multilevel_roi_align_box_grad_cuda.launches == e0 + 1
+    ref = RA.multilevel_roi_align_box_vjp(feats, boxes, STRIDES, 7, g)
+    assert (bx.grad - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
 @pytest.mark.cuda
@@ -722,3 +794,80 @@ def test_train_step_runs_no_plain_roi_align(cuda, monkeypatch):
               model.resnet.group0.block0.conv1.bn.gamma):
         assert p.grad.dtype == torch.float32
         assert torch.isfinite(p.grad).all()
+
+
+def so_config(**kw):
+    """A small R18 configuration with the small-object heads and the
+    person association (ActEV's 16 classes: Prop, Push_Pulled_Object and
+    Bike are its small objects)."""
+    return DetectorConfig(**{**dict(
+        num_class=16, resnet_depth=18, short_edge_size=64, max_size=128,
+        rpn_test_post_nms_topk=64, rpn_train_post_nms_topk=64,
+        rpn_batch_per_im=32, fastrcnn_batch_per_im=32, result_per_im=4,
+        so_person_topk=2, fpn_frcnn_fc_head_dim=256,
+        use_small_object_head=True, use_so_association=True), **kw})
+
+
+@pytest.mark.cuda
+def test_small_object_train_step_runs_b1e(cuda, monkeypatch):
+    """forward_train + backward with the small-object heads on the card:
+    B1 and B1b launch twice (box head, the SO pooling), B1e once (the SO
+    pooling's boxes), the plain ROIAlign never; the box head's gradient
+    is finite."""
+    cfg = so_config(compute_dtype="bfloat16", is_train=True, freeze=-1,
+                    roi_align_train_impl="pallas")
+    model = params_from_jax(init_params(cfg, seed=0), get_model(cfg))
+    model.to(cuda)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain ROIAlign ran on the card")
+    for name in ("multilevel_roi_align", "multilevel_roi_align_vjp",
+                 "multilevel_roi_align_box_vjp"):
+        monkeypatch.setattr(RA, name, plain)
+    monkeypatch.setattr(FR, "multilevel_roi_align", plain)
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.randint(0, 255, (2, 64, 128, 3)).astype(
+        np.uint8)).to(cuda)
+    xy = rng.uniform(0, 60, (2, 4, 2))
+    wh = rng.uniform(8, 40, (2, 4, 2))
+    gt = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32)).to(cuda)
+    labels = torch.tensor([[2, 12, 10, 13]] * 2, device=cuda)
+    valid = torch.ones(2, 4, dtype=torch.bool, device=cuda)
+    counts = [RA.multilevel_roi_align_cuda.launches,
+              RA.multilevel_roi_align_backward_cuda.launches,
+              RA.multilevel_roi_align_box_grad_cuda.launches]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    losses = model.forward_train(imgs, gt, labels, valid, generator=gen)
+    losses["total_loss"].backward()
+    torch.cuda.synchronize()
+    assert [RA.multilevel_roi_align_cuda.launches,
+            RA.multilevel_roi_align_backward_cuda.launches,
+            RA.multilevel_roi_align_box_grad_cuda.launches] == [
+        counts[0] + 2, counts[1] + 2, counts[2] + 1]
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert torch.isfinite(model.fastrcnn.outputs["box"].weight.grad).all()
+
+
+@pytest.mark.cuda
+def test_small_object_forward_with_kernel_matches_plain(cuda):
+    """The f32 forward (TF32 off) with the small-object heads: the
+    kernel's SO outputs equal the plain ROIAlign's (valid slots and labels
+    equal, boxes within 1e-3 px, probabilities within 1e-5); B1 launches 3
+    times (proposals, final boxes, the SO pooling)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = so_config(compute_dtype="float32")
+    model = params_from_jax(init_params(cfg, seed=0), get_model(cfg))
+    model.to(cuda)
+    imgs = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (2, 64, 128, 3)).astype(np.uint8)).to(cuda)
+    before = RA.multilevel_roi_align_cuda.launches
+    got = model(imgs)
+    assert RA.multilevel_roi_align_cuda.launches == before + 3
+    model.config = dataclasses.replace(cfg, roi_align_impl="xla")
+    ref = model(imgs)
+    assert torch.equal(got["so_final_valid"], ref["so_final_valid"])
+    assert torch.equal(got["so_final_labels"], ref["so_final_labels"])
+    assert (got["so_final_boxes"] - ref["so_final_boxes"]).abs().max() <= 1e-3
+    assert (got["so_final_probs"] - ref["so_final_probs"]).abs().max() <= 1e-5

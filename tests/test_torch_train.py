@@ -236,7 +236,9 @@ def test_trainable_roi_align_backward_matches_jax_vjp():
     """On CPU tensors the trainable ROIAlign's backward is autograd of the
     plain gather: the feature gradients of ``jax.vjp(_xla_multilevel)``
     (f32 and bf16 features, the latter cast back as JAX's ``_mra_bwd``
-    does); boxes that require grad raise."""
+    does); boxes that require grad get the box half of that VJP (the
+    gradient ``_mra_bwd`` also returns), which kernel B1e computes on the
+    card."""
     rng = np.random.RandomState(9)
     b, n, c = 2, 11, 8
     feats = [rng.randn(b, 16 >> i, 24 >> i, c).astype(np.float32)
@@ -266,6 +268,13 @@ def test_trainable_roi_align_backward_matches_jax_vjp():
                     np.testing.assert_allclose(
                         f.grad.float().numpy(), r, rtol=2.0 ** -7,
                         atol=1e-5 * max(np.abs(r).max(), 1e-6))
-    with pytest.raises(ValueError):
-        RA.multilevel_roi_align_trainable(
-            [T(f) for f in feats], T(boxes).requires_grad_(True), strides, 7)
+    g = rng.randn(b, n, 7, 7, c).astype(np.float32)
+    _, vjp = jax.vjp(lambda bx: _xla_multilevel(
+        tuple(jnp.asarray(f) for f in feats), bx, strides, 7),
+        jnp.asarray(boxes))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    tb = T(boxes).requires_grad_(True)
+    RA.multilevel_roi_align_trainable([T(f) for f in feats], tb, strides,
+                                      7).backward(T(g))
+    assert np.abs(ref).max() > 0
+    close(tb.grad, ref)

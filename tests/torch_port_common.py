@@ -331,8 +331,8 @@ def reid_net(name, seed=0, size=(64, 32), batch=4):
     import torch
     from torch import nn
 
-    from object_detection_tracking_tpu_torch.models.reid import osnet, \
-        resnet_reid
+    from object_detection_tracking_tpu_torch.models.reid import (
+        ibn_reid, mobilenetv2, osnet, resnet_reid, senet_reid)
     from object_detection_tracking_tpu_torch.models.reid.extractor import \
         build_reid_model
     torch.manual_seed(seed)
@@ -340,8 +340,12 @@ def reid_net(name, seed=0, size=(64, 32), batch=4):
     bns = []
     with torch.no_grad():
         for m in net.modules():
-            if isinstance(m, resnet_reid.Bottleneck):
+            if isinstance(m, (resnet_reid.Bottleneck, senet_reid.SEBottleneck,
+                              ibn_reid.IBNBottleneck)):
                 m.bn3.weight.mul_(0.2)
+            elif isinstance(m, mobilenetv2.MobileBottleneck) \
+                    and m.use_residual:
+                m.conv3[1].weight.mul_(0.2)
             elif isinstance(m, resnet_reid.BasicBlock):
                 m.bn2.weight.mul_(0.2)
             elif isinstance(m, (osnet.OSBlock, osnet.OSBlockAIN)):
