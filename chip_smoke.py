@@ -203,6 +203,26 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                off its autograd graph, against their plain versions
                (B1e: within 1e-4 of max |plain|, with bf16 and float32
                features; two launches bitwise equal; timed, bound)
+ 18. ckpt      the reference's checkpoints on the main path: phase 7's tree
+               (R101-FPN v4, masks, 16 classes) written by this script as a
+               TF V2 bundle under the reference's variable names (no
+               resnet/ root, BN statistics under /EMA, fc6 rows C-major,
+               global_step and a Momentum slot beside them) and as a
+               tensorpack-named .npz of the same names; each loaded
+               through the CLI's load_model with --model_path (host
+               seconds and file size logged) and held equal to the tree
+               bit for bit, leaf for leaf; the bundle's model driven
+               through process_video (phase 7's video) with
+               --log_time_and_gpu --save_util_log_to: B1 and B2 3 times a
+               batch, the sampled device bytes above 0 and the series
+               saved with JAX's keys, MOT rows/ids beside phase 7's; every
+               launch of one forward on phase 7's batch held against the
+               plain versions, and its detections matched to phase 7's
+               model's (>= MATCH_MIN); a native npz with a name the model
+               lacks raises KeyError; --use_lijun_video_loader raises
+               RuntimeError where av does not import, and where it does,
+               a video written with av is decoded through it by
+               process_video
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -336,6 +356,11 @@ REID_FAMILIES = ("se_resnet50", "resnet50_ibn_a", "mobilenetv2_x1_0",
 # fixed order; tests/test_torch_kernels_cuda.py)
 SO_FORWARDS, SO_TRAIN_STEPS = 3, 4
 B1E_REL = 1e-4
+# reference-checkpoint phase (18): --log_time_and_gpu's sampling period
+# there (the CLI's 5 s would see no sample in a drive of a few seconds),
+# and the frames that phase decodes with PyAV where av imports
+CKPT_PERF_INTERVAL = 0.25
+CKPT_PYAV_FRAMES = 16
 
 
 def stage_rel(dtype_name, n_blocks):
@@ -3949,6 +3974,298 @@ def phase_so_train(tmp):
     return out
 
 
+def _varint(n):
+    out = b""
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if not n:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb_varint(field, value):
+    return _varint(field << 3) + _varint(value)
+
+
+def _pb_bytes(field, payload):
+    return _varint((field << 3) | 2) + _varint(len(payload)) + payload
+
+
+def _leveldb_block(entries):
+    """A leveldb block: entries without prefix compression, one restart."""
+    body = b""
+    for key, value in entries:
+        body += _varint(0) + _varint(len(key)) + _varint(len(value))
+        body += key + value
+    return body + (0).to_bytes(4, "little") + (1).to_bytes(4, "little")
+
+
+def write_tf_bundle(prefix, tensors):
+    """A TF V2 checkpoint (tensor bundle) of ``tensors`` (name -> numpy
+    float32/int32/int64 array), written from the format's specs (leveldb
+    table_format.md, tensor_bundle.proto) as tests/test_tf_ckpt.py
+    write_bundle writes it: ``<prefix>.index`` and one data shard, each
+    tensor's raw little-endian bytes streamed to the shard."""
+    enums = {"float32": 1, "int32": 3, "int64": 9}
+    entries, offset = [], 0
+    with open(prefix + ".data-00000-of-00001", "wb") as f:
+        for name in sorted(tensors):
+            arr = tensors[name]
+            shape = b"".join(_pb_bytes(2, _pb_varint(1, d))
+                             for d in arr.shape)
+            entries.append((name.encode(),
+                            _pb_varint(1, enums[str(arr.dtype)])
+                            + _pb_bytes(2, shape) + _pb_varint(4, offset)
+                            + _pb_varint(5, arr.nbytes)))
+            f.write(arr.tobytes())
+            offset += arr.nbytes
+    out = b""
+    handles = []
+    for block in (_leveldb_block([(b"", _pb_varint(1, 1))] + entries),
+                  _leveldb_block([])):
+        handles.append(_varint(len(out)) + _varint(len(block)))
+        out += block + b"\x00" * 5            # type 0 (raw), a crc
+    index = _leveldb_block([(b"\xff", handles[0])])
+    footer = handles[1] + _varint(len(out)) + _varint(len(index))
+    out += index + b"\x00" * 5
+    footer += b"\x00" * (40 - len(footer))
+    footer += (0xdb4775248b80fb57).to_bytes(8, "little")
+    with open(prefix + ".index", "wb") as f:
+        f.write(out + footer)
+
+
+def reference_names(tree, fpn_channels):
+    """The reference's TF variable names (no ':0') for a JAX-layout tree,
+    the inverse of utils/weights.py's name map, as tests/test_weights.py
+    _to_tf_names builds them: the backbone at root scope (no resnet/), BN
+    statistics under .../mean/EMA and .../variance/EMA, fc6's rows in the
+    reference's C-major (C,7,7) order."""
+    import numpy as np
+    flat = {}
+
+    def rec(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                rec(v, path + [k])
+                continue
+            name = (path[1:] if path[0] == "resnet" else path) + [k]
+            if len(name) >= 2 and name[-2] == "bn" and k in ("mean",
+                                                            "variance"):
+                name.append("EMA")
+            flat["/".join(name)] = np.ascontiguousarray(v, np.float32)
+
+    rec(tree, [])
+    fc6 = flat["fastrcnn/fc6/W"]
+    d = fc6.shape[1]
+    flat["fastrcnn/fc6/W"] = np.ascontiguousarray(
+        fc6.reshape(7, 7, fpn_channels, d).transpose(2, 0, 1, 3)
+        .reshape(-1, d))
+    return flat
+
+
+def timed_load(args, cfg, device):
+    """The CLI's load_model with ``args``' --model_path: (model, host
+    seconds, what the loader printed)."""
+    import io
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        model = cli.load_model(args, cfg, device)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, buf.getvalue().strip()
+
+
+def same_tree(got, want, label):
+    """Fails unless the two trees have the same leaves, bit for bit;
+    returns their number."""
+    import numpy as np
+
+    def flat(node, prefix=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + k + "/")
+            else:
+                yield prefix + k, v
+    got, want = dict(flat(got)), dict(flat(want))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: leaves differ: "
+                             f"{sorted(got.keys() ^ want.keys())[:6]}")
+    bad = [k for k in want if not np.array_equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves differ, e.g. "
+                             f"{bad[:4]}")
+    return len(want)
+
+
+def pyav_drive(tmp, cfg, model):
+    """Where av imports: CKPT_PYAV_FRAMES frames of phase 7's video written
+    as an MPEG-4 .avi by av, then decoded through the PyAV reader by
+    process_video --use_lijun_video_loader (every frame, B=8), the launch
+    counts set to 0 just before. Returns a summary."""
+    import av
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.runtime import DetectionRunner
+
+    path = os.path.join(tmp, "pyav.avi")
+    video = SyntheticVideo(CKPT_PYAV_FRAMES, h=ACTEV_H, w=ACTEV_W)
+    with av.open(path, mode="w") as out:
+        stream = out.add_stream("mpeg4", rate=30)
+        stream.width, stream.height = ACTEV_W, ACTEV_H
+        stream.pix_fmt = "yuv420p"
+        for _ in range(CKPT_PYAV_FRAMES):
+            frame = av.VideoFrame.from_ndarray(video.read()[1],
+                                               format="bgr24")
+            for packet in stream.encode(frame):
+                out.mux(packet)
+        for packet in stream.encode():
+            out.mux(packet)
+    args = actev_args(tmp, os.path.join(tmp, "pyav_tracks"),
+                      "--use_lijun_video_loader", "--frame_gap", "1")
+    runner = CheckedRunner(DetectionRunner(model), cfg.result_per_im,
+                           cfg.num_class, masks=True)
+    RA.multilevel_roi_align_cuda.launches = 0
+    RS.fused_bottleneck_stage_cuda.launches = 0
+    frames = cli.process_video(args, cfg, runner, path, cfg.classid2name,
+                               None)
+    torch.cuda.synchronize()
+    roi_n = RA.multilevel_roi_align_cuda.launches
+    stage_n = RS.fused_bottleneck_stage_cuda.launches
+    want = CKPT_PYAV_FRAMES // BATCH
+    if (frames, runner.batches, roi_n, stage_n) != (
+            CKPT_PYAV_FRAMES, want, 3 * want, 3 * want):
+        raise AssertionError(
+            f"PyAV decode: {frames} frames in {runner.batches} batches, "
+            f"roi_align {roi_n} and stage {stage_n} launches")
+    return {"frames": frames, "batches": runner.batches,
+            "roi_launches": roi_n, "stage_launches": stage_n,
+            "av": av.__version__, "bytes": os.path.getsize(path)}
+
+
+def phase_ckpt(tmp, model, x, actev):
+    """The reference's checkpoints on the main path (phase 18 of the module
+    note): phase 7's tree as a TF V2 bundle and a tensorpack-named .npz
+    under the reference's names, each loaded through the CLI's load_model
+    and held equal to the tree; the bundle's model driven through
+    process_video with --log_time_and_gpu, its launches checked on one
+    forward's own inputs and its detections matched to phase 7's model's;
+    the strict native load's KeyError; --use_lijun_video_loader. Returns a
+    summary dict."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
+        as cli
+    from object_detection_tracking_tpu_torch.params import params_to_jax
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    cfg = model.config
+    tree = params_to_jax(model)
+    names = reference_names(tree, cfg.fpn_num_channel)
+    # what a training run saves beside the weights; the loader skips them
+    names.update({"global_step": np.array(120000, np.int64),
+                  "fastrcnn/fc7/W/Momentum": np.zeros_like(
+                      names["fastrcnn/fc7/W"])})
+    prefix = os.path.join(tmp, "model.ckpt-120000")
+    npz = os.path.join(tmp, "tensorpack.npz")
+    t0 = time.perf_counter()
+    write_tf_bundle(prefix, names)
+    np.savez(npz, **{k + ":0": v for k, v in names.items()})
+    sizes = {"bundle": os.path.getsize(prefix + ".index") + os.path.getsize(
+        prefix + ".data-00000-of-00001"), "npz": os.path.getsize(npz)}
+    res = {"arrays": len(names), "bytes": sizes,
+           "write_s": time.perf_counter() - t0}
+    util = os.path.join(tmp, "util.json")
+    tracking = os.path.join(tmp, "ckpt_tracks")
+    for kind, path in (("npz", npz), ("bundle", prefix + ".index")):
+        args = actev_args(tmp, tracking, "--model_path", path,
+                          "--log_time_and_gpu", "--save_util_log_to", util)
+        m, secs, said = timed_load(args, cfg, device)
+        n = same_tree(params_to_jax(m), tree, f"{kind} load")
+        res[f"{kind}_load_s"] = secs
+        log("ckpt", f"--model_path {os.path.basename(path)} "
+            f"({sizes[kind] / 1e6:.1f} MB, reference names): loaded by "
+            f"load_model in {secs:.2f} s host wall ({said!r}); "
+            f"params_to_jax equal to phase 7's tree bit for bit, {n} "
+            f"leaves")
+        if kind == "npz":
+            del m
+    # the bundle's model on the main path, as the CLI's main runs it
+    interval, cli.PERF_INTERVAL = cli.PERF_INTERVAL, CKPT_PERF_INTERVAL
+    try:
+        with cli.perf_logging(args, device) as perf:
+            runner, frames, wall, roi_n, stage_n, rows = drive_actev(
+                args, cfg, m, "ckpt")
+    finally:
+        cli.PERF_INTERVAL = interval
+    summary = perf.summary()
+    with open(util) as f:
+        series = json.load(f)
+    if sorted(series) != ["cpu_percent", "device_bytes", "rss_mb", "time"] \
+            or not summary.get("device_bytes_max", 0) > 0:
+        raise AssertionError(f"--log_time_and_gpu: series {sorted(series)},"
+                             f" summary {summary}")
+    res.update(frames=frames, batches=runner.batches, wall_s=wall,
+               roi_launches=roi_n, stage_launches=stage_n, track_rows=rows,
+               actev_track_rows=actev["track_rows"], perf=summary,
+               samples=len(series["time"]))
+    log("ckpt", f"the bundle's model through process_video with "
+        f"--log_time_and_gpu: {frames} frames in {runner.batches} batches, "
+        f"{wall:.3f} s wall; launches: roi_align {roi_n}, bottleneck stage "
+        f"{stage_n} (3 per batch each); MOT rows/ids {rows} (phase 7: "
+        f"{actev['track_rows']}); {len(series['time'])} samples every "
+        f"{CKPT_PERF_INTERVAL} s, device_bytes max "
+        f"{summary['device_bytes_max'] / 1e9:.3f} GB, rss max "
+        f"{summary['rss_mb_max']:.0f} MB")
+    with torch.inference_mode():
+        out = m(x)
+        ref = {k: v.cpu().numpy() for k, v in model(x).items()}
+    share, total = match_share(ref, {k: v.cpu().numpy()
+                                     for k, v in out.items()})
+    if not share >= MATCH_MIN:
+        raise AssertionError(f"bundle-loaded model matches {share:.4f} of "
+                             f"{total} of phase 7's detections")
+    log("ckpt", f"one forward on phase 7's batch: {share:.4f} of {total} "
+        f"detections of phase 7's model matched (bound {MATCH_MIN})")
+    res.update(match=share, check=main_path_kernel_check(m, x, out, "ckpt"))
+    del m, out
+
+    bad = os.path.join(tmp, "bad.npz")
+    np.savez(bad, **{"resnet/conv0/W": tree["resnet"]["conv0"]["W"],
+                     "fastrcnn/bogus/W": np.zeros((2, 2), np.float32)})
+    try:
+        timed_load(actev_args(tmp, tracking, "--model_path", bad), cfg,
+                   device)
+    except KeyError as e:
+        log("ckpt", f"a native npz with a name the model lacks: KeyError "
+            f"{e}")
+    else:
+        raise AssertionError("a native npz with an extra name loaded")
+    if importlib.util.find_spec("av") is None:
+        try:
+            actev_args(tmp, tracking, "--use_lijun_video_loader")
+        except RuntimeError as e:
+            log("ckpt", f"av does not import: --use_lijun_video_loader "
+                f"raises RuntimeError ({e})")
+        else:
+            raise AssertionError("--use_lijun_video_loader without av "
+                                 "did not raise")
+        res["pyav"] = None
+    else:
+        res["pyav"] = pyav_drive(tmp, cfg, model)
+        log("ckpt", f"--use_lijun_video_loader: {res['pyav']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log("ckpt", f"phase 18 took {res['phase_s']:.1f} s of host wall")
+    return res
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4076,7 +4393,11 @@ def main():
     prof = phase_profile(model, x, "actev-profile", unfused=unfused)
     with tempfile.TemporaryDirectory() as tmp:
         tmot = phase_tmot(tmp, model, x, actev)
-    del model, unfused, x
+    del unfused
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = phase_ckpt(tmp, model, x, actev)
+    del model, x
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(tmp)
@@ -4122,7 +4443,8 @@ def main():
               + [r["err"] for r in tq_roi]
               + [r["err"] for r in imgs_roi]
               + [r["err"] for r in so["roi"].values()]
-              + [r["err"] for r in so_train["roi"].values()])
+              + [r["err"] for r in so_train["roi"].values()]
+              + [r["err"] for r in ckpt["check"]["roi"].values()])
     bwd = train["bwd"]
     _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
     _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
@@ -4130,7 +4452,8 @@ def main():
     stage_err = max([r["err"] for r in sres.values()]
                     + actev["check"]["stage"] + tmot["check"]["stage"]
                     + imgs["check"]["stage"]
-                    + imgs["options_check"]["stage"])
+                    + imgs["options_check"]["stage"]
+                    + ckpt["check"]["stage"])
     roi_device = sum(r["device_ms"] for r in roi.values())
     roi_bound = sum(r["bound_ms"] for r in roi.values())
     kernels = {"kernels": [{
@@ -4164,6 +4487,7 @@ def main():
         "so_train_launches": so_train["launches"][
             "multilevel_roi_align_cuda"],
         "so_train_per_launch": so_train["roi"],
+        "ckpt_launches": ckpt["roi_launches"],
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -4237,6 +4561,7 @@ def main():
          "imgs_launches": imgs["default"]["stage_launches"],
          "imgs_options_launches": imgs["options"]["stage_launches"],
          "imgs_conv_head_launches": imgs["conv_head"]["stage_launches"],
+         "ckpt_launches": ckpt["stage_launches"],
          "ms": sum(r["ms"] for r in bf),
          "plain_ms": sum(r["plain_ms"] for r in bf),
          "bound_ms": sum(r["bound_ms"] for r in bf),
@@ -4279,6 +4604,7 @@ def main():
         "small_objects": {k: v for k, v in so.items() if k != "roi"},
         "so_train": {k: v for k, v in so_train.items()
                      if k not in ("roi", "bwd", "box_grad")},
+        "ckpt": {k: v for k, v in ckpt.items() if k != "check"},
         "card": card}
     print(json.dumps(kernels))
     print(card)

@@ -1,5 +1,5 @@
-"""Detector training entry point (port of object_detection_tracking_tpu/cli/
-main.py:25-404, its ``train`` mode).
+"""Train / test / forward / pack driver (port of
+object_detection_tracking_tpu/cli/main.py:25-523).
 
   train:   the Faster/Mask R-CNN or EfficientDet train step on one device
            with the JAX CLI's schedule and optimizer, periodic eval with
@@ -8,6 +8,13 @@ main.py:25-404, its ``train`` mode).
            LR schedule. An EfficientDet's BN statistics are calibrated
            after the last step (``EfficientDet.calibrate_bn``), before the
            final checkpoint.
+  test:    AP/AR of ``--load_from`` on the validation lst: a checkpoint
+           ``load_weights`` reads (``.npz``: tensorpack/TF names or the
+           native layout), or this driver's own ``step_<N>.pt``.
+  forward: prints, as the JAX driver does, that cli.obj_detect_imgs is
+           the batch image inference, and exits with code 2.
+  pack:    not ported: the counterpart of the JAX package's
+           runtime/aot.py waits for a captured CUDA graph (ROADMAP A12).
 
 The same flags as the JAX CLI, plus ``--device`` (default cuda; with no GPU
 it raises unless ``--device cpu`` is given). ``--compute_dtype`` defaults to
@@ -16,7 +23,10 @@ bfloat16 on the GPU and float32 on the CPU. The configuration takes
 runs kernel B1 forward and kernel B1b backward (ROADMAP C9). The final
 params are also written as the JAX package's native flat ``.npz``
 (``<outbasepath>/<modelname>/final.npz``), which both packages load.
-The ``test``, ``forward`` and ``pack`` modes are not ported (ROADMAP A12).
+``--load_from`` takes what the JAX driver's does (utils/weights.py
+load_weights: a TF V2 checkpoint of the reference, a tensorpack-named
+``.npz``, the native flat ``.npz``), laid over the seeded init; a native
+npz name the model lacks raises ``KeyError``.
 
 ``train`` is the loop alone: it takes any dataset with
 ``DetectionTrainDataset``'s ``batches(epochs)`` interface, so a caller
@@ -36,6 +46,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
 from collections import deque
 
@@ -44,9 +55,10 @@ import torch
 
 from ..config import DetectorConfig, TrainConfig
 from ..models import get_model
-from ..params import (init_params, load_npz_tree, params_from_jax,
-                      params_to_jax, save_npz_tree)
+from ..params import (init_params, params_from_jax, params_to_jax,
+                      save_npz_tree)
 from ..train import Trainer
+from ..utils.weights import load_weights
 from .obj_detect_tracking import resolve_device
 
 
@@ -62,7 +74,9 @@ def get_args(argv=None):
     p.add_argument("--outbasepath", default="runs/detector")
     p.add_argument("--modelname", default="odt")
     p.add_argument("--load_from", default=None,
-                   help=".npz of the JAX package's native flat layout")
+                   help="a TF V2 checkpoint (directory, prefix or .index), "
+                   "a tensorpack-named .npz or the native flat .npz; test "
+                   "also takes this driver's step_<N>.pt")
     p.add_argument("--ignore_vars", default=None,
                    help="':'-separated name substrings excluded from "
                    "--load_from restore (fine-tune with fresh heads, "
@@ -206,33 +220,19 @@ def build(args, is_train: bool, device: torch.device):
 
 
 def build_model(args, cfg, device: torch.device):
-    """The model ``cfg.model`` names, on ``device``: random params from
-    seed 0, with ``--load_from``'s native ``.npz`` laid over them. The
-    flags build a Faster/Mask R-CNN config; EfficientDet is trained from a
-    config with ``model="efficientdet"``, as the JAX package's quality
-    proof does, through ``build_model`` and ``train``."""
-    tree = init_params(cfg, seed=0, model_name=cfg.model)
+    """The model ``cfg.model`` names, on ``device``: params from seed 0,
+    with ``--load_from`` laid over them by ``load_weights`` (names holding
+    one of the ':'-separated ``--ignore_vars`` substrings keep their
+    init). The flags build a Faster/Mask R-CNN config; EfficientDet is
+    trained from a config with ``model="efficientdet"``, as the JAX
+    package's quality proof does, through ``build_model`` and ``train``."""
+    model = get_model(cfg)
     if args.load_from:
-        _overlay(tree, load_npz_tree(args.load_from, cfg.model),
-                 args.ignore_vars)
-    return params_from_jax(tree, get_model(cfg)).to(device)
-
-
-def _overlay(tree, loaded, ignore_vars):
-    """Copy ``loaded``'s leaves into ``tree``, except names holding one of
-    the ':'-separated ``ignore_vars`` substrings (they keep their init)."""
-    subs = [s for s in (ignore_vars or "").split(":") if s]
-
-    def rec(dst, src, prefix):
-        for k, v in src.items():
-            name = prefix + k
-            if isinstance(v, dict):
-                rec(dst.setdefault(k, {}), v, name + "/")
-            elif any(s in name for s in subs):
-                print(f"ignored {name}")
-            else:
-                dst[k] = v
-    rec(tree, loaded, "")
+        tree = load_weights(args.load_from, model,
+                            ignore_vars=args.ignore_vars)
+    else:
+        tree = init_params(cfg, seed=0, model_name=cfg.model)
+    return params_from_jax(tree, model).to(device)
 
 
 def checkpoint_dir(args, best=False):
@@ -439,12 +439,38 @@ def mode_train(args, dataset=None):
     return train(args, cfg, model, ds)
 
 
+def mode_test(args) -> float:
+    """AP of ``--load_from`` on the validation lst (JAX main.py:407-417):
+    an ``.npz`` through ``load_weights``, else this driver's
+    ``step_<N>.pt``; the seeded init without ``--load_from``."""
+    device = resolve_device(args.device)
+    cfg = build_config(args, is_train=False, device=device)
+    model = get_model(cfg)
+    npz = bool(args.load_from) and args.load_from.endswith(".npz")
+    tree = load_weights(args.load_from, model) if npz else init_params(
+        cfg, seed=0, model_name=cfg.model)
+    params_from_jax(tree, model).to(device)
+    if args.load_from and not npz:
+        model.load_state_dict(torch.load(
+            args.load_from, map_location=device)["params"])
+    return run_eval(args, cfg, model)
+
+
 def main(argv=None):
     args = get_args(argv)
-    if args.mode != "train":
+    if args.mode == "train":
+        mode_train(args)
+    elif args.mode == "test":
+        mode_test(args)
+    elif args.mode == "pack":
         raise NotImplementedError(
-            f"main.py {args.mode} is not ported yet (ROADMAP A12)")
-    mode_train(args)
+            "main.py pack is not ported yet: the counterpart of the JAX "
+            "package's runtime/aot.py waits for a captured CUDA graph "
+            "(ROADMAP A12)")
+    else:
+        print("forward mode: use cli.obj_detect_imgs (same output format)",
+              file=sys.stderr)
+        sys.exit(2)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ architecture toggles as the video CLI (``ARCH_TOGGLES``), plus
 ``--device`` (default cuda; with no GPU it raises unless ``--device cpu``
 is given). ``--compute_dtype`` defaults to bfloat16 on the GPU and
 float32 on the CPU. With ``--is_efficientdet`` each image is fitted into
-the model's square input, as in the video CLI.
+the model's square input, as in the video CLI. ``--model_path`` takes
+the formats the video CLI's takes (utils/weights.py load_weights).
 
 Example:
   python -m object_detection_tracking_tpu_torch.cli.obj_detect_imgs \
@@ -43,8 +44,9 @@ def get_args(argv=None):
                         help="file with one image path per line")
     parser.add_argument("--out_dir", required=True)
     parser.add_argument("--model_path", default=None,
-                        help=".npz of the JAX package's native flat layout "
-                        "(EfficientDet: also automl checkpoint names)")
+                        help="a TF V2 checkpoint (directory, prefix or "
+                        ".index), a tensorpack-named .npz or the native "
+                        "flat .npz (EfficientDet: also automl names)")
     parser.add_argument("--version", type=int, default=4)
     parser.add_argument("--num_class", type=int, default=16)
     parser.add_argument("--is_coco_model", action="store_true")

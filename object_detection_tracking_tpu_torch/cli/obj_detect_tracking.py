@@ -10,8 +10,14 @@ no GPU it raises unless ``--device cpu`` is given). ``--compute_dtype``
 defaults to bfloat16 on the GPU and float32 on the CPU. The architecture
 toggles (``ARCH_TOGGLES``: --use_gn, --use_deformable,
 --use_conv_frcnn_head, --use_att_frcnn_head, --add_relation_nn and the
-rest) layer over --version as in JAX. Flags of parts not ported yet raise
-NotImplementedError naming their ROADMAP item.
+rest) layer over --version as in JAX. ``--model_path`` takes what the JAX
+CLI takes (utils/weights.py load_weights): a TF V2 checkpoint of the
+reference (a directory, a prefix or its ``.index``), a tensorpack-named
+``.npz``, the native flat ``.npz``, and for EfficientDet automl ``.npz``
+files and bundles. ``--use_lijun_video_loader`` decodes with PyAV and
+raises where ``av`` does not import; ``--log_time_and_gpu`` samples host
+CPU, RSS and the card's allocated memory (runtime/profiler.py) and
+``--save_util_log_to`` writes the series as JSON.
 
 Example:
   python -m object_detection_tracking_tpu_torch.cli.obj_detect_tracking \
@@ -21,14 +27,13 @@ Example:
     --get_tracking --tracking_dir tracks_out --device cuda
 
 ``--is_efficientdet`` runs EfficientDet (``--efficientdet_modelname``,
-d0 by default) on frames fitted into its square input; ``--model_path``
-then takes the JAX package's native npz or an npz of the automl
-checkpoint names (utils/effdet_weights.py).
+d0 by default) on frames fitted into its square input.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -40,18 +45,20 @@ import torch
 from ..class_ids import coco_obj_to_actev_obj, targetAct2id
 from ..config import DetectorConfig
 from ..data import VideoEnqueuer, open_video
+from ..data import video as video_io
 from ..models import get_model
-from ..params import init_params, load_npz_tree, params_from_jax
-from ..runtime import DetectionRunner
+from ..params import init_params, params_from_jax
+from ..runtime import DetectionRunner, PerformanceLogger
 from ..tracking.deep_sort import (Tracker, create_obj_infos, det_level_nms,
                                   filter_short_objs, linear_inter_bbox,
                                   link_tracklets)
 from ..tracking.deep_sort.nn_matching import NearestNeighborDistanceMetric
 from ..tracking.tmot import JDETracker
 from ..utils.masks import fill_full_mask, rle_encode
+from ..utils.weights import load_weights
 
-# flags of parts not ported yet -> ROADMAP item that ports them
-_NOT_PORTED = {"use_lijun_video_loader": "A12", "log_time_and_gpu": "A12"}
+# --log_time_and_gpu's sampling period in seconds (JAX CLI :433)
+PERF_INTERVAL = 5.0
 
 # the architecture toggles layered over --version (DetectorConfig fields),
 # the same in this CLI and in cli/obj_detect_imgs.py (JAX
@@ -69,8 +76,9 @@ def get_args(argv=None):
     parser.add_argument("--out_dir", default=None,
                         help="per-frame detection json output dir")
     parser.add_argument("--model_path", default=None,
-                        help=".npz of the JAX package's native flat layout "
-                        "(EfficientDet: also automl checkpoint names)")
+                        help="a TF V2 checkpoint (directory, prefix or "
+                        ".index), a tensorpack-named .npz or the native "
+                        "flat .npz (EfficientDet: also automl names)")
     parser.add_argument("--version", type=int, default=4)
     parser.add_argument("--num_class", type=int, default=16)
     parser.add_argument("--is_coco_model", action="store_true")
@@ -138,11 +146,14 @@ def get_args(argv=None):
                         "this cosine distance (off by default)")
     # misc
     parser.add_argument("--use_lijun_video_loader", action="store_true",
-                        help="the PyAV frame-accurate decoder (not ported "
-                        "yet)")
+                        help="use the PyAV frame-accurate decoder "
+                        "(raises without PyAV)")
     parser.add_argument("--log_time_and_gpu", action="store_true",
-                        help="not ported yet")
-    parser.add_argument("--save_util_log_to", default=None)
+                        help="sample host CPU, RSS and device memory "
+                        "while the videos run; print the summary")
+    parser.add_argument("--save_util_log_to", default=None,
+                        help="with --log_time_and_gpu: write the sampled "
+                        "series here as JSON")
     parser.add_argument("--use_my_naming", action="store_true")
     parser.add_argument("--test_frame_extraction", action="store_true")
     parser.add_argument("--visualize", action="store_true",
@@ -157,10 +168,10 @@ def get_args(argv=None):
                         "color conversion, cv2-exact); auto picks i420 "
                         "when frame dims are even")
     args = parser.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
+    if args.use_lijun_video_loader and not video_io._HAS_AV:
+        # no silent cv2 decode in its place (JAX data/video.py:268-270)
+        raise RuntimeError("--use_lijun_video_loader needs PyAV, and av "
+                           "does not import")
     return args
 
 
@@ -225,7 +236,9 @@ def process_video(args, cfg, runner, video_path, classid2name,
     videoname = os.path.splitext(os.path.basename(video_path))[0]
     if vcap is None:
         try:
-            vcap = open_video(video_path)
+            vcap = open_video(
+                video_path,
+                "pyav" if args.use_lijun_video_loader else "auto")
         except (IOError, RuntimeError) as e:
             print(f"warning: cannot open {video_path}: {e}", file=sys.stderr)
             return 0
@@ -409,30 +422,13 @@ def _write_frame_json(args, video_out_path, videoname, cur_frame, boxes,
         json.dump(pred, f)
 
 
-def load_tree(path: str, model, model_name: str):
-    """--model_path as a JAX-layout param tree: the native flat npz, or for
-    EfficientDet an npz of automl checkpoint names (JAX
-    utils/weights.py:191-204). TF checkpoints are not ported (A12)."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz weights are read; TF checkpoints "
-            "(utils/tf_ckpt.py) are not ported yet (ROADMAP A12)")
-    if model_name == "efficientdet":
-        from ..utils.effdet_weights import has_automl_names, \
-            load_effdet_reference
-        with np.load(path) as data:
-            if has_automl_names(data.files):
-                return load_effdet_reference(dict(data), model, source=path)
-    return load_npz_tree(path, model_name)
-
-
 def load_model(args, cfg, device: torch.device):
     """The detector on ``device`` in eval mode, with --model_path weights
-    (or seeded random ones)."""
+    laid over the seeded init (``load_weights``), or the init alone."""
     model_name = "efficientdet" if args.is_efficientdet else "faster_rcnn"
     model = get_model(cfg, model_name)
     if args.model_path:
-        tree = load_tree(args.model_path, model, model_name)
+        tree = load_weights(args.model_path, model)
     else:
         print("warning: no --model_path, using random weights",
               file=sys.stderr)
@@ -446,6 +442,25 @@ def build_runner(args, cfg, device: torch.device) -> DetectionRunner:
     return DetectionRunner(load_model(args, cfg, device),
                            emb_agg=args.emb_agg_method,
                            ship_full_feat=args.get_box_feat)
+
+
+@contextlib.contextmanager
+def perf_logging(args, device: torch.device):
+    """With --log_time_and_gpu, a ``PerformanceLogger`` sampling every
+    ``PERF_INTERVAL`` s while the block runs; after it, its summary is
+    printed and, with --save_util_log_to, its series written (JAX CLI
+    :432-452). Yields the logger, or None without the flag."""
+    if not args.log_time_and_gpu:
+        yield None
+        return
+    perf = PerformanceLogger(interval=PERF_INTERVAL, device=device).start()
+    try:
+        yield perf
+    finally:
+        perf.end()
+    print("perf:", perf.summary())
+    if args.save_util_log_to:
+        perf.save(args.save_util_log_to)
 
 
 def main(argv=None):
@@ -464,18 +479,19 @@ def main(argv=None):
         # tracked classes are named in ActEV terms (Person/Vehicle/Bike)
         coco_to_actev = dict(coco_obj_to_actev_obj)
 
-    start = time.time()
-    with open(args.video_lst_file) as f:
-        videos = [os.path.join(args.video_dir, line.strip())
-                  for line in f if line.strip()]
-    total_frames = 0
-    for video in videos:
-        total_frames += process_video(args, cfg, runner, video,
-                                      classid2name, coco_to_actev)
+    with perf_logging(args, device):
+        start = time.time()
+        with open(args.video_lst_file) as f:
+            videos = [os.path.join(args.video_dir, line.strip())
+                      for line in f if line.strip()]
+        total_frames = 0
+        for video in videos:
+            total_frames += process_video(args, cfg, runner, video,
+                                          classid2name, coco_to_actev)
 
-    elapsed = time.time() - start
-    print("total run time %.1fs, %d frames, %.2f fps"
-          % (elapsed, total_frames, total_frames / max(elapsed, 1e-6)))
+        elapsed = time.time() - start
+        print("total run time %.1fs, %d frames, %.2f fps"
+              % (elapsed, total_frames, total_frames / max(elapsed, 1e-6)))
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ Takes the MOT txt from obj_detect_tracking and merges broken tracklets via
 OSNet (Person) / ResNet (Vehicle) appearance features. The same flags as
 the JAX CLI, plus ``--device`` (default cuda; with no GPU it raises unless
 ``--device cpu`` is given). The extractors run in bfloat16 on the GPU and
-in float32 on the CPU. ``--use_lijun_video_loader`` asks for the PyAV
-reader, which is not ported yet (ROADMAP A12).
+in float32 on the CPU. ``--use_lijun_video_loader`` decodes with the PyAV
+reader (data/video.py ``PyAVReader``) and raises where ``av`` does not
+import.
 
   python -m object_detection_tracking_tpu_torch.cli.single_video_reid \
     --video_dir videos --video_lst_file v.lst --track_dir tracks \

@@ -1,4 +1,4 @@
-"""Host data plane of the port: cv2 video reading, the decode/resize
+"""Host data plane of the port: cv2 and PyAV video reading, the decode/resize
 enqueuer, and the image-list dataset with its ordered prefetch
 (object_detection_tracking_tpu/data)."""
 

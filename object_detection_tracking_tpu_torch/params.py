@@ -124,16 +124,20 @@ _NATIVE_ROOTS = {
 
 def load_npz_tree(path: str, model_name: str = "faster_rcnn") -> Tree:
     """Nested param tree from the JAX package's native flat slash-named
-    ``.npz`` (utils/weights.py:127-168), with numpy alone."""
+    ``.npz`` (utils/weights.py:127-168), with numpy alone, exactly the
+    names the file holds. A file of other names (tensorpack/TF or automl
+    names, another model's roots) raises ``ValueError``: read such
+    checkpoints with ``utils.weights.load_weights``, which also lays a
+    native npz over the model's init, strictly."""
     out: Tree = {}
     with np.load(path) as data:
         for name in data.files:
             if name.endswith(":0") or not name.startswith(
                     _NATIVE_ROOTS[model_name]):
-                raise NotImplementedError(
-                    f"{path}: {name!r} is not the native flat npz layout; "
-                    "tensorpack/TF-named checkpoints are not ported yet "
-                    "(ROADMAP A12)")
+                raise ValueError(
+                    f"{path}: {name!r} is not a name of the native flat "
+                    f"npz layout of {model_name!r}; load tensorpack/TF and "
+                    "automl checkpoints with utils.weights.load_weights")
             node = out
             parts = name.split("/")
             for k in parts[:-1]:

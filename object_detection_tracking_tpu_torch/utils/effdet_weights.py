@@ -17,8 +17,8 @@ Our BiFPN is weight-isomorphic with that graph (per-fnode lazy channel
 resamples, see models/efficientdet/efficientdet.py), so conversion is a
 renaming plus two layout fixes: depthwise kernels [H, W, C, 1] ->
 [H, W, 1, C], and per-edge scalar WSM variables gathered into our [E]
-fusion-weight vectors. The TF-checkpoint reader (utils/tf_ckpt.py) is not
-ported yet (ROADMAP A12): the port reads such names from an ``.npz``.
+fusion-weight vectors. utils/weights.py load_weights routes automl-named
+``.npz`` files and TF bundles (read by utils/tf_ckpt.py) here.
 """
 
 from __future__ import annotations
@@ -152,13 +152,9 @@ def load_effdet_reference(weights: Dict[str, np.ndarray], model,
     Unmapped checkpoint arrays are reported (optimizer slots and the
     efficientnet classification head are expected leftovers); model params
     not present keep their random init (params.init_params, seed 0)."""
-    import dataclasses
+    from .weights import _init_tree
 
-    from ..params import init_params
-
-    params = init_params(
-        dataclasses.replace(model.config, efficientdet_name=model.name),
-        seed=0, model_name="efficientdet")
+    params = _init_tree(model)
     name_map = effdet_name_map(model)
 
     def set_path(path, value):

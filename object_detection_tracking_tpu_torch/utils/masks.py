@@ -1,12 +1,13 @@
 """Mask post-processing: paste a 28x28 head output into the full frame and
 encode COCO-compatible compressed RLE (the port's copy of
 object_detection_tracking_tpu/utils/masks.py ``fill_full_mask``,
-``rle_encode``, ``rle_decode``).
+``polys_to_box_mask``, ``rle_encode``, ``rle_decode``).
 
 The RLE codec follows pycocotools' maskApi.c format: column-major run
 lengths, delta-encoded from the second-previous count, 5-bit LEB128-style
-chars offset by 48. Nothing here needs cv2: ``fill_full_mask`` resizes
-with numpy as ``cv2.resize`` does.
+chars offset by 48. Only ``polys_to_box_mask`` (COCO training masks,
+data/coco.py) needs cv2: ``fill_full_mask`` resizes with numpy as
+``cv2.resize`` does.
 """
 
 from __future__ import annotations
@@ -14,6 +15,11 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+try:
+    import cv2
+except ImportError:  # pragma: no cover
+    cv2 = None
 
 
 def _linear_taps(n_src: int, n_dst: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -77,6 +83,37 @@ def fill_full_mask(box_xyxy, mask: np.ndarray, im_hw) -> np.ndarray:
     out = np.zeros((h_im, w_im), np.uint8)
     out[y0:y1 + 1, x0:x1 + 1] = (resized > 0.5).astype(np.uint8)
     return out
+
+
+def polys_to_box_mask(polygons, box_xyxy, mask_size: int = 28,
+                      supersample: int = 2) -> np.ndarray:
+    """Rasterize COCO polygons onto a gt box's local MxM grid.
+
+    This is the TPU-static gt-mask representation consumed by the mask
+    training loss (train/losses.crop_mask_to_roi): the reference instead
+    rasterizes to full image resolution and crops per proposal with
+    crop_and_resize (models.py:744-776). Rasterizes at ``supersample``x
+    resolution and box-average-thresholds for sub-pixel fidelity.
+
+    polygons: list of flat [x1, y1, x2, y2, ...] image-coord lists.
+    Returns float32 [mask_size, mask_size] in {0, 1}."""
+    x1, y1, x2, y2 = [float(v) for v in box_xyxy]
+    w = max(x2 - x1, 1e-3)
+    h = max(y2 - y1, 1e-3)
+    ss = mask_size * supersample
+    canvas = np.zeros((ss, ss), np.uint8)
+    pts = []
+    for poly in polygons:
+        p = np.asarray(poly, np.float32).reshape(-1, 2)
+        p[:, 0] = (p[:, 0] - x1) / w * ss
+        p[:, 1] = (p[:, 1] - y1) / h * ss
+        pts.append(np.round(p).astype(np.int32))
+    if pts:
+        cv2.fillPoly(canvas, pts, 1)
+    if supersample > 1:
+        canvas = canvas.reshape(mask_size, supersample,
+                                mask_size, supersample).mean(axis=(1, 3))
+    return (canvas >= 0.5).astype(np.float32)
 
 
 def _counts(mask: np.ndarray) -> List[int]:

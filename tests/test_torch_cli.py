@@ -36,6 +36,7 @@ from object_detection_tracking_tpu.runtime import DetectionRunner  # noqa: E402
 from object_detection_tracking_tpu.utils.weights import save_npz  # noqa: E402
 from object_detection_tracking_tpu_torch.cli import obj_detect_tracking as tcli  # noqa: E402
 from object_detection_tracking_tpu_torch.utils.masks import rle_decode  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import jax_params  # noqa: E402
 
 H, W = 64, 96
@@ -160,15 +161,19 @@ def test_segmentation_matches_jax_cli(run_both):
     assert masked > 0
 
 
-def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path):
-    """The A12 flags raise; the five architecture options (ported) reach
+def test_cli_refuses_unported_flags_and_missing_gpu(tmp_path, monkeypatch):
+    """--use_lijun_video_loader raises where av does not import (no silent
+    cv2 decode in its place) and --log_time_and_gpu is taken (both ported,
+    A12); the five architecture options (ported) reach
     the configuration as JAX's build_config forwards them, and the
     small-object head, which no flag of this CLI turns on (as in JAX),
     builds once the configuration asks for it (A8b, ported)."""
+    from object_detection_tracking_tpu_torch.data import video as tvideo
     base = ["--video_dir", str(tmp_path), "--video_lst_file", "x"]
-    for flag in ("--use_lijun_video_loader", "--log_time_and_gpu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            tcli.get_args(base + [flag])
+    monkeypatch.setattr(tvideo, "_HAS_AV", False)
+    with pytest.raises(RuntimeError, match="PyAV"):
+        tcli.get_args(base + ["--use_lijun_video_loader"])
+    assert tcli.get_args(base + ["--log_time_and_gpu"]).log_time_and_gpu
     toggles = ["--use_deformable", "--use_gn", "--add_relation_nn",
                "--use_att_frcnn_head", "--use_conv_frcnn_head"]
     argv = base + toggles

@@ -29,6 +29,7 @@ from object_detection_tracking_tpu.utils.weights import save_npz  # noqa: E402
 from object_detection_tracking_tpu_torch.cli import obj_detect_tracking as tcli  # noqa: E402
 from object_detection_tracking_tpu_torch.runtime import DetectionRunner as TRunner  # noqa: E402
 from test_torch_cli import make_video, read_mot  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import effdet_params  # noqa: E402
 
 ARGV = ["--is_efficientdet", "--efficientdet_modelname", "efficientdet-test",

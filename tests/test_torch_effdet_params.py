@@ -16,12 +16,13 @@ from object_detection_tracking_tpu.config import DetectorConfig  # noqa: E402
 from object_detection_tracking_tpu.models.efficientdet import EfficientDet as JE  # noqa: E402
 from object_detection_tracking_tpu.utils import effdet_weights as JW  # noqa: E402
 from object_detection_tracking_tpu.utils.weights import save_npz  # noqa: E402
-from object_detection_tracking_tpu_torch.cli import obj_detect_tracking as tcli  # noqa: E402
 from object_detection_tracking_tpu_torch import params as TP  # noqa: E402
 from object_detection_tracking_tpu_torch.models import get_model  # noqa: E402
 from object_detection_tracking_tpu_torch.params import (  # noqa: E402
     init_params, load_npz_tree, params_from_jax, params_to_jax)
 from object_detection_tracking_tpu_torch.utils import effdet_weights as TW  # noqa: E402
+from object_detection_tracking_tpu_torch.utils.weights import load_weights  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import flat, port_config  # noqa: E402
 
 # the published parameter counts in millions and the bounds of the JAX
@@ -126,7 +127,7 @@ def test_native_npz_loads_as_saved(tmp_path, monkeypatch):
     ref = flat(tree)
     assert sorted(got) == sorted(ref)
     assert all(np.array_equal(got[k], ref[k]) for k in ref)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="load_weights"):
         load_npz_tree(str(tmp_path / "p.npz"))   # not a Faster R-CNN tree
 
 
@@ -168,8 +169,7 @@ def test_automl_loader_matches_jax(name, tmp_path):
     # --model_path with such an npz goes through it
     np.savez(str(tmp_path / "automl.npz"), **weights)
     assert TW.has_automl_names(np.load(str(tmp_path / "automl.npz")).files)
-    via_cli = tcli.load_tree(str(tmp_path / "automl.npz"), model,
-                             "efficientdet")
+    via_cli = load_weights(str(tmp_path / "automl.npz"), model)
     assert all(np.array_equal(flat(via_cli)[k], ref[k]) for k in ref)
     params_from_jax(via_cli, model)
     assert torch.equal(model.class_net.predict.pw.bias,
@@ -177,7 +177,19 @@ def test_automl_loader_matches_jax(name, tmp_path):
 
 
 def test_tf_checkpoint_route_raises_naming_a12(tmp_path):
-    model = get_model(port_config(cfg_of("efficientdet-test")),
-                      "efficientdet")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tcli.load_tree(str(tmp_path / "model.ckpt"), model, "efficientdet")
+    """The TF-checkpoint route (ported with A12): a path that is no
+    checkpoint raises JAX's ValueError; a bundle of automl names there
+    loads as its npz does."""
+    from tests.test_tf_ckpt import write_bundle
+    cfg = cfg_of("efficientdet-test")
+    model = get_model(port_config(cfg), "efficientdet")
+    path = str(tmp_path / "model.ckpt")
+    with pytest.raises(ValueError, match="unsupported checkpoint format"):
+        load_weights(path, model)
+    weights = automl_dict(JE(cfg), init_params(port_config(cfg), 0,
+                                               "efficientdet"))
+    write_bundle(path, {k[:-2]: np.asarray(v) for k, v in weights.items()})
+    got, want = flat(load_weights(path, model)), flat(
+        TW.load_effdet_reference(dict(weights), model))
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)

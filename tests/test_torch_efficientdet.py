@@ -31,6 +31,7 @@ from object_detection_tracking_tpu_torch.models.efficientdet import efficientdet
 from object_detection_tracking_tpu_torch.models.efficientdet import efficientnet as TEN  # noqa: E402
 from object_detection_tracking_tpu_torch.params import (  # noqa: E402
     _Init, _init_efficientnet, params_from_jax, params_to_jax)
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import calibrating_bn, close, effdet_params  # noqa: E402
 
 H, W = 96, 128

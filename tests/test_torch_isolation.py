@@ -5,8 +5,10 @@ imports the JAX package or reads one of its files, and its own copies of
 the JAX-free modules (config, class_ids, utils/masks, csrc/lapjv.cpp,
 data/training.py, data/synthetic.py, evaluation.py, evaluation_mot.py,
 tracking/tmot/, reid/, data/datasets.py, the automl name map of
-utils/effdet_weights.py)
-hold the same values as the originals."""
+utils/effdet_weights.py, utils/tf_ckpt.py, data/coco.py, data/kf1.py, the
+tooling CLIs)
+hold the same values as the originals; and the checkpoint load of
+``--model_path`` and ``--load_from`` is JAX's strict one."""
 
 import ast
 import dataclasses
@@ -23,6 +25,7 @@ from object_detection_tracking_tpu import class_ids as jids
 from object_detection_tracking_tpu import config as jconfig
 from object_detection_tracking_tpu_torch import class_ids as tids
 from object_detection_tracking_tpu_torch import config as tconfig
+from torch_port_common import one_torch_thread  # noqa: F401
 
 PKG = os.path.dirname(port.__file__)
 ROOT = os.path.dirname(PKG)
@@ -121,11 +124,29 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "use_so_association=True)\n"
         "m = params_from_jax(init_params(cfg), get_model(cfg))\n"
         "assert torch.isfinite(m(img)['so_final_probs']).all()\n"
+        "from object_detection_tracking_tpu_torch.utils import tf_ckpt, "
+        "weights\n"
+        "from object_detection_tracking_tpu_torch.data import coco, kf1, "
+        "video\n"
+        "from object_detection_tracking_tpu_torch.runtime import profiler\n"
+        "from object_detection_tracking_tpu_torch.cli import (eval, "
+        "eval_mot, track_to_json, vis_json, vis_tracks, get_frames_resize, "
+        "check_and_vis_global_tracks, kf1_convert, generate_util_graph)\n"
+        "d = tempfile.mkdtemp()\n"
+        "np.savez(os.path.join(d, 'tf.npz'), **{'conv0/W:0': "
+        "np.ones((7, 7, 3, 64), np.float32), 'global_step:0': np.array(3)})"
+        "\n"
+        "t = weights.load_weights(os.path.join(d, 'tf.npz'), m)\n"
+        "assert (t['resnet']['conv0']['W'] == 1).all()\n"
+        "p = profiler.PerformanceLogger(0.01, 'cpu')\n"
+        "p._sample()\n"
+        "assert p.summary()['device_bytes_max'] == 0.0\n"
+        "assert not video._HAS_AV or 'av' in sys.modules\n"
         f"bad = [m for m, v in sys.modules.items() if v is not None and "
         f"(m == 'jax' or m.startswith('jax.') or m == '{JAX_PKG}' or "
         f"m.startswith('{JAX_PKG}.'))]\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -187,6 +208,14 @@ def test_no_source_imports_or_reads_the_jax_package():
             "object_detection_tracking_tpu_torch/data/datasets.py",
             "object_detection_tracking_tpu_torch/models/deformable.py",
             "object_detection_tracking_tpu_torch/models/relation.py",
+            "object_detection_tracking_tpu_torch/utils/weights.py",
+            "object_detection_tracking_tpu_torch/utils/tf_ckpt.py",
+            "object_detection_tracking_tpu_torch/runtime/profiler.py",
+            "object_detection_tracking_tpu_torch/data/video.py",
+            "object_detection_tracking_tpu_torch/data/coco.py",
+            "object_detection_tracking_tpu_torch/data/kf1.py",
+            *(f"object_detection_tracking_tpu_torch/cli/{m}.py"
+              for m in COPIED_CLIS + USAGE_CLIS),
             *(f"object_detection_tracking_tpu_torch/models/reid/{m}.py"
               for m in ("senet_reid", "ibn_reid", "mobilenetv2",
                         "densenet_reid", "squeezenet_reid",
@@ -246,7 +275,7 @@ def test_training_runs_with_jax_and_the_jax_package_blocked():
         f"(k == 'jax' or k.startswith('jax.') or k == '{JAX_PKG}' or "
         f"k.startswith('{JAX_PKG}.'))]\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -345,8 +374,18 @@ def test_lapjv_source_is_the_jax_solver():
         os.path.join(ROOT, JAX_PKG, "native", "lapjv.cpp"))
 
 
+# the tooling CLIs: copies of the JAX package's files, byte for byte, or
+# (USAGE_CLIS) but for their docstrings' ``python -m`` usage lines
+COPIED_CLIS = ("eval", "track_to_json", "get_frames_resize",
+               "check_and_vis_global_tracks", "kf1_convert",
+               "generate_util_graph")
+USAGE_CLIS = ("eval_mot", "vis_json", "vis_tracks")
+
+
 @pytest.mark.parametrize("path", ["data/training.py", "data/synthetic.py",
-                                  "data/datasets.py",
+                                  "data/datasets.py", "data/coco.py",
+                                  "data/kf1.py", "utils/tf_ckpt.py",
+                                  *(f"cli/{m}.py" for m in COPIED_CLIS),
                                   "evaluation.py", "evaluation_mot.py",
                                   "tracking/tmot/__init__.py",
                                   "tracking/tmot/matching.py",
@@ -363,6 +402,73 @@ def test_jax_free_module_copies_equal_the_originals(path):
         got = f.read()
     with open(os.path.join(ROOT, JAX_PKG, path), "rb") as f:
         assert got == f.read()
+
+
+@pytest.mark.parametrize("name", USAGE_CLIS)
+def test_tooling_cli_copies_differ_only_in_usage_lines(name):
+    """These CLIs name their package in their usage lines: with the JAX
+    package's name in those lines, the port's copy is the original."""
+    with open(os.path.join(PKG, "cli", f"{name}.py")) as f:
+        got = f.read()
+    with open(os.path.join(ROOT, JAX_PKG, "cli", f"{name}.py")) as f:
+        ref = f.read()
+    assert got != ref
+    assert got.replace(f"python -m {JAX_PKG}_torch.cli.",
+                       f"python -m {JAX_PKG}.cli.") == ref
+
+
+def _strict_load_setup(tmp_path, tag):
+    """A tiny R18 configuration's seeded tree written as a native npz with
+    one leaf left out (``partial``) or one name added (``extra``)."""
+    from object_detection_tracking_tpu_torch.params import (init_params,
+                                                            save_npz_tree)
+    cfg = tconfig.DetectorConfig(num_class=4, resnet_depth=18,
+                                 short_edge_size=32, max_size=64,
+                                 fpn_frcnn_fc_head_dim=64,
+                                 compute_dtype="float32")
+    tree = init_params(cfg, seed=5)
+    if tag == "partial":
+        del tree["fastrcnn"]["fc7"]["W"]
+    else:
+        tree["fastrcnn"]["bogus"] = {"W": np.zeros((2, 2), np.float32)}
+    path = str(tmp_path / f"{tag}.npz")
+    save_npz_tree(path, tree)
+    return cfg, tree, path
+
+
+@pytest.mark.parametrize("entry", ["model_path", "load_from"])
+def test_native_npz_load_is_strict_as_in_jax(tmp_path, entry):
+    """The native npz through --model_path (cli/obj_detect_tracking.py
+    load_model) and --load_from (cli/main.py build_model), as JAX's
+    load_weights reads it (utils/weights.py:160-168): a partial npz loads,
+    the leaf it lacks keeping the seeded init; a name the model lacks
+    raises KeyError."""
+    import torch
+    from object_detection_tracking_tpu_torch.cli import main as tmain
+    from object_detection_tracking_tpu_torch.cli import \
+        obj_detect_tracking as tcli
+    from object_detection_tracking_tpu_torch.params import (init_params,
+                                                            params_to_jax)
+    cpu = torch.device("cpu")
+
+    def load(cfg, path):
+        if entry == "model_path":
+            args = tcli.get_args(["--video_dir", ".", "--video_lst_file",
+                                  "x", "--model_path", path])
+            return tcli.load_model(args, cfg, cpu)
+        args = tmain.get_args(["train", "--load_from", path])
+        return tmain.build_model(args, cfg, cpu)
+
+    cfg, tree, path = _strict_load_setup(tmp_path, "partial")
+    got = params_to_jax(load(cfg, path))
+    np.testing.assert_array_equal(got["fastrcnn"]["fc6"]["W"],
+                                  tree["fastrcnn"]["fc6"]["W"])
+    np.testing.assert_array_equal(got["fastrcnn"]["fc7"]["W"],
+                                  init_params(cfg, seed=0)["fastrcnn"]["fc7"]
+                                  ["W"])
+    cfg, _, path = _strict_load_setup(tmp_path, "extra")
+    with pytest.raises(KeyError, match="fastrcnn/bogus/W"):
+        load(cfg, path)
 
 
 def test_masks_match_jax():

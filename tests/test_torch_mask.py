@@ -26,6 +26,7 @@ from object_detection_tracking_tpu_torch.models.layers import (  # noqa: E402
 from object_detection_tracking_tpu_torch.params import (  # noqa: E402
     init_params, params_from_jax, params_to_jax)
 from object_detection_tracking_tpu_torch.runtime import DetectionRunner  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import (CONFIGS, H, W, close,  # noqa: E402
                                compare_forward, jax_params)
 

@@ -24,6 +24,7 @@ from object_detection_tracking_tpu.models import get_model as jax_model  # noqa:
 from object_detection_tracking_tpu.models.resnet import resnet_c2345  # noqa: E402
 from object_detection_tracking_tpu_torch.models import get_model  # noqa: E402
 from object_detection_tracking_tpu_torch.params import params_from_jax  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import CONFIGS, H, W, close, jax_params  # noqa: E402
 
 B = 2

@@ -20,6 +20,7 @@ from object_detection_tracking_tpu_torch.ops.nms import (  # noqa: E402
     nms, sort_desc_stable)
 from object_detection_tracking_tpu_torch.ops.norm import (  # noqa: E402
     FrozenBN, bn_relu, frozen_bn)
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 
 T = torch.from_numpy
 

@@ -16,6 +16,7 @@ from object_detection_tracking_tpu_torch.params import (init_params,
                                                         load_npz_tree,
                                                         params_from_jax,
                                                         params_to_jax)
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 
 PKG = os.path.dirname(port.__file__)
 ROOT = os.path.dirname(PKG)
@@ -86,14 +87,15 @@ def test_init_params_matches_jax_tree(name):
 
 @pytest.mark.parametrize("name", ["r18", "r50_se_resnext"])
 def test_pytree_round_trip_is_bit_exact(name):
-    """The r18 tree comes from JAX's init_params; the SE-ResNeXt one from
-    the port's (the same structure, test above), which is quicker."""
+    """The r18 tree comes from JAX's init_params (jitted: eager, it
+    compiles op by op for ~15 s); the SE-ResNeXt one from the port's (the
+    same structure, test above), which is quicker."""
     cfg = CFGS[name]()
     if name == "r18":
         jax = pytest.importorskip("jax")
         from object_detection_tracking_tpu.models import get_model as jm
-        tree = jax.tree.map(np.asarray,
-                            jm(cfg).init_params(jax.random.PRNGKey(1)))
+        tree = jax.tree.map(np.asarray, jax.jit(jm(cfg).init_params)(
+            jax.random.PRNGKey(1)))
     else:
         tree = init_params(cfg, seed=1)
     back = dict(flatten(params_to_jax(params_from_jax(tree, get_model(cfg)))))
@@ -146,5 +148,5 @@ def test_load_npz_tree_reads_save_npz(tmp_path):
     assert sorted(back) == sorted(flat)
     assert all(np.array_equal(back[k], flat[k]) for k in flat)
     np.savez(tmp_path / "tf.npz", **{"conv0/W:0": np.zeros(3)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="load_weights"):
         load_npz_tree(str(tmp_path / "tf.npz"))

@@ -14,6 +14,7 @@ cv2 = pytest.importorskip("cv2")
 
 from object_detection_tracking_tpu.models.reid import extractor as jx
 from object_detection_tracking_tpu_torch.models.reid import extractor as tx
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import close, reid_net
 
 SIZE = (64, 32)

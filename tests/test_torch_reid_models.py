@@ -19,6 +19,7 @@ from object_detection_tracking_tpu.models.reid import (osnet_ain_forward,
                                                        resnet_reid_forward)
 from object_detection_tracking_tpu.models.reid.extractor import \
     load_torch_state_dict
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import close, reid_net
 
 # name -> (parameters, state_dict entries, sha1 of the sorted keys). The

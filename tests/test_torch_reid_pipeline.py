@@ -33,6 +33,7 @@ from object_detection_tracking_tpu_torch.cli import reid_query as tquery
 from object_detection_tracking_tpu_torch.cli import \
     single_video_reid as tsingle
 from object_detection_tracking_tpu_torch.reid import single_video as tsv
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import reid_net
 
 HW, N_FRAMES = 160, 40
@@ -252,11 +253,14 @@ def test_reid_query_matches_jax(inputs, jax_extractors, monkeypatch, capsys,
                                atol=1e-4 * np.abs(ref).max())
 
 
-def test_pyav_loader_flag_raises_naming_a12(inputs):
-    """``--use_lijun_video_loader`` asks for the PyAV reader (JAX: "pyav"),
-    which the port has not ported yet."""
+def test_pyav_loader_flag_raises_naming_a12(inputs, monkeypatch):
+    """``--use_lijun_video_loader`` asks for the PyAV reader (JAX: "pyav",
+    ported with A12): where av does not import it raises RuntimeError, as
+    JAX's open_video does, and never decodes with cv2 instead."""
+    from object_detection_tracking_tpu_torch.data import video as tvideo
     d, models = inputs
-    with pytest.raises(NotImplementedError, match="A12"):
+    monkeypatch.setattr(tvideo, "_HAS_AV", False)
+    with pytest.raises(RuntimeError, match="av not installed"):
         tsingle.main(["--video_dir", d, "--video_lst_file",
                       os.path.join(d, "videos.lst"), "--track_dir",
                       os.path.join(d, "tracks"), "--out_dir",

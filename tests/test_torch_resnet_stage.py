@@ -24,6 +24,7 @@ from object_detection_tracking_tpu_torch.models.resnet import (  # noqa: E402
     Bottleneck, ResNet)
 from object_detection_tracking_tpu_torch.ops import resnet_stage as RS  # noqa: E402
 from object_detection_tracking_tpu_torch.params import params_from_jax  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import close  # noqa: E402
 
 

@@ -21,6 +21,7 @@ import torch  # noqa: E402
 from object_detection_tracking_tpu.ops.roi_align import (  # noqa: E402
     fpn_map_rois_to_levels as jax_levels, multilevel_roi_align as jax_mra)
 from object_detection_tracking_tpu_torch.ops import roi_align as RA  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 
 STRIDES = (4, 8, 16, 32)
 

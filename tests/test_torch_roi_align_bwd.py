@@ -21,6 +21,7 @@ import torch
 from object_detection_tracking_tpu.ops.pallas.roi_align_pallas import \
     _xla_multilevel
 from object_detection_tracking_tpu_torch.ops import roi_align as RA
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 
 T = torch.from_numpy
 STRIDES = (4, 8, 16, 32)

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from object_detection_tracking_tpu_torch.runtime import DetectionRunner
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 
 
 class FakeModel:

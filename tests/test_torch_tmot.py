@@ -15,6 +15,7 @@ from object_detection_tracking_tpu.tracking import assignment as jassign  # noqa
 from object_detection_tracking_tpu.tracking import tmot as jtmot  # noqa: E402
 from object_detection_tracking_tpu_torch.tracking import assignment  # noqa: E402
 from object_detection_tracking_tpu_torch.tracking import tmot  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 
 
 def random_costs(seed):

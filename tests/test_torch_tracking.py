@@ -19,6 +19,7 @@ from object_detection_tracking_tpu_torch.tracking import deep_sort as ds  # noqa
 from object_detection_tracking_tpu_torch.tracking.deep_sort.nn_matching import (  # noqa: E402
     NearestNeighborDistanceMetric as Metric)
 from object_detection_tracking_tpu_torch.tracking.kalman import KalmanFilter  # noqa: E402
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 
 NAMES = {1: "person", 2: "car", 3: "bicycle"}
 TO_ACTEV = {"person": "Person", "car": "Vehicle", "bicycle": "Bike"}

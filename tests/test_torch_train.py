@@ -31,6 +31,7 @@ from object_detection_tracking_tpu_torch.train import Optimizer
 from object_detection_tracking_tpu_torch.train import losses as tl
 from object_detection_tracking_tpu_torch.train import targets as tt
 from object_detection_tracking_tpu_torch.train import make_lr_schedule
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import close, jax_draws, train_configs
 
 T = torch.from_numpy

@@ -17,6 +17,7 @@ from object_detection_tracking_tpu_torch.data.synthetic import \
     generate_dataset
 from object_detection_tracking_tpu_torch.params import (load_npz_tree,
                                                         params_to_jax)
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import flat, train_batch
 
 H, W = 48, 64
@@ -105,6 +106,10 @@ def test_train_cli_device_and_unported_modes(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         M.main(["train", "--trainlst", "x"])
-    for mode in ("test", "forward", "pack"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            M.main([mode])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        M.main(["test"])
+    with pytest.raises(SystemExit) as exit_:      # JAX's forward mode
+        M.main(["forward"])
+    assert exit_.value.code == 2
+    with pytest.raises(NotImplementedError, match="A12"):
+        M.main(["pack"])

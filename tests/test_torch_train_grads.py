@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import flat, grad_tree, train_setup
 
 

@@ -15,6 +15,7 @@ from object_detection_tracking_tpu_torch.params import (load_npz_tree,
                                                         params_to_jax,
                                                         save_npz_tree)
 from test_torch_train_cli import H, W, _synthetic_args
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import compare_forward, flat, jax_params, train_batch
 
 

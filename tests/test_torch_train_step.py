@@ -22,6 +22,7 @@ from object_detection_tracking_tpu_torch.models import get_model
 from object_detection_tracking_tpu_torch.params import (params_from_jax,
                                                         params_to_jax)
 from object_detection_tracking_tpu_torch.train import Trainer
+from torch_port_common import one_torch_thread  # noqa: E402,F401
 from torch_port_common import (flat, jax_params, train_batch, train_configs,
                                train_setup)
 

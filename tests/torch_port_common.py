@@ -7,10 +7,26 @@ import dataclasses
 from functools import lru_cache
 
 import numpy as np
+import pytest
 
 from object_detection_tracking_tpu.config import DetectorConfig
 
 H, W = 64, 96
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for the module that imports this fixture
+    (an autouse fixture in its namespace). Torch's default, a thread a
+    core, oversubscribes the cores when six tier-1 workers run at once:
+    a file that takes 28 s alone took 205 s among them."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(short_edge_size=H, max_size=W, rpn_test_post_nms_topk=32,
              result_per_im=8, compute_dtype="float32", rpn_topk_recall=1.0,
              roi_align_impl="xla")
@@ -89,19 +105,26 @@ def close(got, ref, rel=1e-4):
                                atol=rel * max(np.abs(ref).max(), 1e-6))
 
 
-def compare_forward(cfg, params, imgs):
-    """The port's forward against the eager JAX forward on the same params
-    and uint8 frames: valid slots and labels equal, boxes to 1e-3 px,
-    probabilities to 1e-5, embeddings to 1e-4 of their largest magnitude,
-    invalid slots 0. Returns (port outputs, JAX outputs) as numpy."""
+def compare_forward(cfg, params, imgs, ref_params=None, jit=False):
+    """The port's forward against the eager JAX forward (jitted with
+    ``jit``: a cold eager forward compiles op by op, ~30 s for R18 on the
+    CPU; BGR frames only, see tests/test_torch_forward.py) on the same
+    params (or on ``ref_params``, where given) and uint8 frames: valid
+    slots and labels equal, boxes to 1e-3 px, probabilities to 1e-5,
+    embeddings to 1e-4 of their largest magnitude, invalid slots 0.
+    Returns (port outputs, JAX outputs) as numpy."""
+    import jax
     import torch
 
     from object_detection_tracking_tpu.models import get_model as jax_model
     from object_detection_tracking_tpu_torch.models import get_model
     from object_detection_tracking_tpu_torch.params import params_from_jax
     tm = params_from_jax(params, get_model(cfg))
-    ref = {k: np.asarray(v)
-           for k, v in jax_model(cfg).forward(params, imgs).items()}
+    forward = jax_model(cfg).forward
+    if jit:
+        forward = jax.jit(forward)
+    ref = {k: np.asarray(v) for k, v in forward(
+        params if ref_params is None else ref_params, imgs).items()}
     with torch.inference_mode():
         got = {k: v.numpy() for k, v in tm(torch.from_numpy(imgs)).items()}
     assert set(got) == set(ref)
