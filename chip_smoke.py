@@ -151,7 +151,14 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                TF32 off), card bf16 against card f32 (row cosine >= 0.99),
                features finite; the same for one net of each further
                family (se_resnet50, resnet50_ibn_a, mobilenetv2_x1_0,
-               densenet121, squeezenet1_1, shufflenet_v2_x1_0); then, with
+               densenet121, squeezenet1_1, shufflenet_v2_x1_0, shufflenet,
+               pcb_p6, resnet50mid, mlfn, hacnn at its 160x64, mudeep,
+               xception, inceptionv4, inceptionresnetv2, nasnetamobile;
+               BatchNorm2d over 1x1 maps keep unit statistics, and
+               inceptionv4's BN betas are 1 when its statistics are
+               measured, as tests/torch_port_common.py reid_net); whether
+               grid_sample (hacnn's part sampling, run in float32) takes
+               bfloat16 on the card, logged; then, with
                cv2 blocked and phase 7's video
                re-rendered in memory for every decode, single_video_reid's
                main on phase 7's MOT files with each class's longest track
@@ -223,6 +230,22 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                RuntimeError where av does not import, and where it does,
                a video written with av is decoded through it by
                process_video
+ 19. parallel  data parallelism (parallel/mesh.py) on the card: the
+               process group from torchrun's variables (MASTER_ADDR and
+               MASTER_PORT on a free local port, RANK 0, WORLD_SIZE 1),
+               NCCL, world size 1; cli/main.py train through its
+               data-parallel path at phase 9's settings (R101-FPN v4,
+               masks, B=2, bf16, freeze=2), 3 steps on a repeated batch,
+               cuDNN deterministic; B1 and B1b 2 times a step, every loss
+               finite, rank 0's checkpoints; then the same steps through
+               the one-process path (the same init, batch and draws): every
+               param bit for bit equal; one step's B1 and B1b launches,
+               read off its autograd graph, held against their plain
+               versions; the sharded step against Trainer.step by CUDA
+               events (no gradient all-reduce at one data rank), and a
+               flat NCCL all-reduce of the gradients apart, its result
+               equal to its input; the group destroyed before the phase
+               ends
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -348,7 +371,15 @@ IMG_OPTIONS = ["--use_gn", "--use_deformable", "--add_relation_nn",
 # ReID phase (15), extended: one net of each further family, as the
 # defaults are run
 REID_FAMILIES = ("se_resnet50", "resnet50_ibn_a", "mobilenetv2_x1_0",
-                 "densenet121", "squeezenet1_1", "shufflenet_v2_x1_0")
+                 "densenet121", "squeezenet1_1", "shufflenet_v2_x1_0",
+                 "shufflenet", "pcb_p6", "resnet50mid", "mlfn", "hacnn",
+                 "mudeep", "xception", "inceptionv4", "inceptionresnetv2",
+                 "nasnetamobile")
+# deep BN-ReLU stacks without a residual: every BatchNorm2d's beta is 1
+# before the statistics are measured (with beta 0 a random Inception-v4 is
+# chaotic, its float32 forward 7e-4 of max from float64 at 256x128 on the
+# CPU; tests/torch_port_common.py reid_net)
+REID_PLAIN = ("inceptionv4",)
 # small-object phase (17): the SO heads on phase 7's detector, timed
 # forwards; the train CLI with --use_small_object_head at phase 9's
 # settings, steps; B1e vs plain autograd, as a share of max |plain|
@@ -361,6 +392,9 @@ B1E_REL = 1e-4
 # and the frames that phase decodes with PyAV where av imports
 CKPT_PERF_INTERVAL = 0.25
 CKPT_PYAV_FRAMES = 16
+# data-parallel phase (19): steps through main.py train's sharded path and
+# through its one-process path; the timed step pairs
+PAR_STEPS, PAR_TIMED = 3, 5
 
 
 def stage_rel(dtype_name, n_blocks):
@@ -2887,16 +2921,18 @@ def reid_weights(name, path, seed):
     small size: torchreid's init from ``seed``, each residual branch's last
     BN gamma (OSBlockINin's IN gamma) x0.2, then every BatchNorm2d's
     running statistics measured on the card over a seeded batch of
-    REID_BATCH normal images at REID_SIZE; the fc head's BN1d keeps unit
-    statistics. With the init's unit statistics a random OSNet's features
-    barely depend on the input and every crop would look alike. Returns
-    the parameter count."""
+    REID_BATCH normal images at the net's input size (REID_SIZE, or its
+    fixed one); the fc head's BN1d and a BatchNorm2d over 1x1 maps keep
+    unit statistics, and the nets of REID_PLAIN have every BatchNorm2d's
+    beta at 1 before the measure. With the init's unit statistics a random
+    OSNet's features barely depend on the input and every crop would look
+    alike. Returns the parameter count."""
     import torch
     from torch import nn
     from object_detection_tracking_tpu_torch.models.reid import (
-        ibn_reid, mobilenetv2, osnet, resnet_reid, senet_reid)
-    from object_detection_tracking_tpu_torch.models.reid.extractor import \
-        build_reid_model
+        ibn_reid, mlfn_reid, mobilenetv2, osnet, resnet_reid, senet_reid)
+    from object_detection_tracking_tpu_torch.models.reid.extractor import (
+        FIXED_IMAGE_SIZE, build_reid_model)
     torch.manual_seed(seed)
     net = build_reid_model(name).cuda()
     bns = []
@@ -2905,6 +2941,8 @@ def reid_weights(name, path, seed):
             if isinstance(m, (resnet_reid.Bottleneck, senet_reid.SEBottleneck,
                               ibn_reid.IBNBottleneck)):
                 m.bn3.weight.mul_(0.2)
+            elif isinstance(m, mlfn_reid.MLFNBlock):
+                m.fm_bn3.weight.mul_(0.2)
             elif isinstance(m, mobilenetv2.MobileBottleneck) \
                     and m.use_residual:
                 m.conv3[1].weight.mul_(0.2)
@@ -2916,17 +2954,27 @@ def reid_weights(name, path, seed):
             if isinstance(m, nn.BatchNorm2d):
                 m.momentum = None     # running stats = this batch's
                 m.reset_running_stats()
+                if name in REID_PLAIN:
+                    m.bias.fill_(1.0)
                 bns.append(m)
         gen = torch.Generator("cuda").manual_seed(seed + 1)
-        x = torch.randn(REID_BATCH, 3, *REID_SIZE, device="cuda",
-                        generator=gen)
+        x = torch.randn(REID_BATCH, 3, *FIXED_IMAGE_SIZE.get(name, REID_SIZE),
+                        device="cuda", generator=gen)
         net.train()
         for m in net.modules():
             if isinstance(m, nn.BatchNorm1d):
                 m.eval()
+        pointwise = set()
+        hooks = [m.register_forward_hook(
+            lambda m, inp, out: pointwise.add(m)
+            if inp[0].shape[2:].numel() == 1 else None) for m in bns]
         net(x)
+        for h in hooks:
+            h.remove()
     for m in bns:
         m.momentum = 0.1
+        if m in pointwise:
+            m.reset_running_stats()
     torch.save({k: v.cpu() for k, v in net.state_dict().items()}, path)
     return sum(p.numel() for p in net.parameters())
 
@@ -2988,7 +3036,8 @@ def reid_extractor_run(name, path, crops):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = sum(p.numel() for p in ex.model.parameters())
     log("reid", f"{name}: {n_params} params, bf16, B={len(crops)} at "
-        f"{REID_SIZE[0]}x{REID_SIZE[1]}: forward {ms:.3f} ms (median of 15 "
+        f"{ex.image_size[0]}x{ex.image_size[1]}: forward {ms:.3f} ms (median "
+        f"of 15 "
         f"CUDA-event timings), {1e3 * len(crops) / ms:.0f} crops/s; host "
         f"wall {wall:.2f} ms, {total:.3f} ms of kernels in {n_kernels} "
         f"launches (torch.profiler, mean of 2), device busy "
@@ -3562,6 +3611,30 @@ def phase_imgs(tmp):
     return res
 
 
+def grid_sample_bf16():
+    """Whether F.grid_sample takes bfloat16 input and grid on the card, and
+    how far its output is then from float32's (hacnn samples its parts in
+    float32 either way: a bfloat16 grid keeps 8 bits of each coordinate)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator("cuda").manual_seed(7)
+    x = torch.randn(8, 32, 80, 32, device="cuda", generator=gen)
+    theta = torch.tensor([[1.0, 0.0, 0.1], [0.0, 0.25, -0.4]],
+                         device="cuda").expand(8, 2, 3)
+    grid = F.affine_grid(theta, list(x.shape), align_corners=False)
+    ref = F.grid_sample(x, grid, align_corners=False)
+    try:
+        got = F.grid_sample(x.bfloat16(), grid.bfloat16(),
+                            align_corners=False).float()
+    except RuntimeError as e:
+        log("reid", f"grid_sample in bfloat16 on the card raises: {e}")
+        return {"runs": False}
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log("reid", f"grid_sample in bfloat16 on the card runs; max |d| from "
+        f"float32 {rel:.3g} of max |f32| (hacnn samples in float32)")
+    return {"runs": True, "rel_err": rel}
+
+
 def phase_reid(tmp, tracks):
     """ReID at the CLIs' defaults (phase 15 of the module note): seeded
     osnet_x1_0 and resnet101 checkpoints, each extractor timed and checked
@@ -3590,6 +3663,7 @@ def phase_reid(tmp, tracks):
         path = os.path.join(tmp, f"{name}.pth")
         reid_weights(name, path, seed=i)
         res[name] = reid_extractor_run(name, path, crops)
+    res["grid_sample_bf16"] = grid_sample_bf16()
     n_frames = FRAME_GAP * BATCH * N_BATCHES
     opened = []
 
@@ -4266,6 +4340,200 @@ def phase_ckpt(tmp, model, x, actev):
     return res
 
 
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(tmp):
+    """Data parallelism on the card (phase 19 of the module note):
+    main.py train through parallel/mesh.py under NCCL at world size 1,
+    against its one-process path on the same init, batch and draws, bit for
+    bit. Returns a summary dict."""
+    import torch
+    import torch.distributed as dist
+    from object_detection_tracking_tpu_torch.cli import main as train_cli
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.parallel import mesh as par
+    from object_detection_tracking_tpu_torch.params import (
+        _leaves, init_params, save_npz_tree)
+    from object_detection_tracking_tpu_torch.train import Trainer
+
+    device = torch.device("cuda")
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved_env = {k: os.environ.get(k) for k in env}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    os.environ.update(env)
+    # both runs take the same, deterministic, cuDNN algorithms, so that the
+    # sharded and the plain path can be bit-equal
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        args = train_cli.get_args([
+            "train", "--add_mask", "--im_batch_size", str(TRAIN_BATCH),
+            "--num_step", str(PAR_STEPS), "--lr_schedule", "constant",
+            "--warmup_steps", "0", "--clip_gradient_norm", "10",
+            "--save_every", "1000", "--outbasepath",
+            os.path.join(tmp, "dp"), "--device", "cuda"])
+        cfg = train_cli.build_config(args, True, device)
+        got = (cfg.resnet_depth, cfg.use_dilations, cfg.num_class,
+               cfg.add_mask, cfg.compute_dtype, cfg.freeze,
+               cfg.roi_align_train_impl, cfg.max_size, cfg.short_edge_size)
+        if got != (101, True, 16, True, "bfloat16", 2, "pallas", ACTEV_W,
+                   ACTEV_H):
+            raise AssertionError(f"not phase 9's settings: {got}")
+        tree = init_params(cfg, seed=0)
+        for gname, group in tree["resnet"].items():    # as in phase 9
+            if gname.startswith("group"):
+                for blk in group.values():
+                    last = blk["conv3"] if "conv3" in blk else blk["conv2"]
+                    last["bn"]["gamma"] *= 0.2
+        args.load_from = os.path.join(tmp, "init.npz")
+        save_npz_tree(args.load_from, tree)
+        batch = train_batch(cfg, args.max_gt)
+        data = MemoryBatches(batch, PAR_STEPS)
+
+        RA.multilevel_roi_align_cuda.launches = 0
+        RA.multilevel_roi_align_backward_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_cli.mode_train(args, dataset=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd_n = RA.multilevel_roi_align_cuda.launches
+        bwd_n = RA.multilevel_roi_align_backward_cuda.launches
+        backend, world = dist.get_backend(), dist.get_world_size()
+        losses = res["losses"]
+        log("parallel", f"main.py train under torchrun's variables: "
+            f"backend {backend}, world size {world}; {res['step']} steps of "
+            f"R{cfg.resnet_depth}-FPN v{args.version} + masks, "
+            f"{ACTEV_W}x{ACTEV_H}, B={TRAIN_BATCH}, {cfg.compute_dtype} in "
+            f"{wall:.2f} s "
+            f"wall (init, build and load included); total loss per step: "
+            + ", ".join(f"{v:.4f}" for v in losses)
+            + f"; launches: roi_align {fwd_n}, roi_align_backward {bwd_n} "
+            f"(2 per step each)")
+        if backend != "nccl" or world != 1:
+            raise AssertionError(f"process group {backend} x{world}")
+        if res["step"] != PAR_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"steps {res['step']}, losses {losses}")
+        if fwd_n != 2 * PAR_STEPS or bwd_n != 2 * PAR_STEPS:
+            raise AssertionError(f"{PAR_STEPS} steps launched roi_align "
+                                 f"{fwd_n} and roi_align_backward {bwd_n} "
+                                 f"times, want 2 per step each")
+        ckpts = sorted(os.listdir(train_cli.checkpoint_dir(args)))
+        if ckpts != [f"step_{PAR_STEPS}.pt"]:
+            raise AssertionError(f"checkpoints {ckpts}")
+
+        # the one-process path: the same init, batch and draws
+        args.outbasepath = os.path.join(tmp, "one")
+        one_model = train_cli.build_model(args, cfg, device)
+        one = train_cli.train(args, cfg, one_model, data)
+        dp_model = res["trainer"].model
+        diff = {"/".join(path): float((t - u).abs().max())
+                for (path, t, _), (_, u, _) in zip(_leaves(dp_model),
+                                                   _leaves(one_model))
+                if not torch.equal(t, u)}
+        log("parallel", f"params after {PAR_STEPS} steps, sharded path vs "
+            f"one-process path: {len(diff)} of "
+            f"{sum(1 for _ in _leaves(one_model))} leaves differ"
+            + (f" (largest {max(diff.values()):.3g} at "
+               f"{max(diff, key=diff.get)})" if diff else
+               ", bit for bit equal")
+            + f"; losses {one['losses']} vs {losses}")
+        if diff or one["losses"] != losses:
+            raise AssertionError(f"sharded and one-process paths differ at "
+                                 f"{sorted(diff)[:5]}")
+        del one
+        torch.cuda.empty_cache()
+
+        # the sharded step against the one-process step by CUDA events
+        mesh = par.make_mesh(device=device)
+        trainer, step_fn = par.make_sharded_train_step(dp_model,
+                                                       res["trainer"].cfg,
+                                                       mesh)
+        plain = Trainer(one_model, res["trainer"].cfg)
+        tb = [torch.from_numpy(x).to(device) for x in batch]
+        gen = torch.Generator(device=device)
+        times = {"sharded": [], "one-process": [], "all-reduce": []}
+        params = list(trainer.opt.params.values())
+        for i in range(PAR_TIMED + 1):
+            for name in ("sharded", "one-process"):
+                gen.manual_seed(2000 + i)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                if name == "sharded":
+                    step_fn(*tb, generator=gen)
+                else:
+                    plain.step(*tb, generator=gen)
+                ev[1].record()
+                ev[1].synchronize()
+                if i:
+                    times[name].append(ev[0].elapsed_time(ev[1]))
+            # the flat all-reduce a data axis of several ranks makes (one
+            # rank skips it), here over NCCL at world size 1
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            dist.all_reduce(flat, group=mesh.data_group)
+            ev[1].record()
+            ev[1].synchronize()
+            if i:
+                times["all-reduce"].append(ev[0].elapsed_time(ev[1]))
+        step_ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        n_grad = sum(p.numel() for p in params)
+        if not torch.equal(flat, torch.cat([p.grad.reshape(-1)
+                                            for p in params])):
+            raise AssertionError("an NCCL all-reduce at world size 1 "
+                                 "changed the gradients")
+        log("parallel", f"one step, median of {PAR_TIMED} in turns (CUDA "
+            f"events, the batch on the card for both): sharded "
+            f"{step_ms['sharded']:.2f} ms (the rank's rows and draws; no "
+            f"gradient all-reduce at one data rank), one-process "
+            f"Trainer.step {step_ms['one-process']:.2f} ms; a flat NCCL "
+            f"all-reduce of the {n_grad} float32 gradients (concatenation "
+            f"included), as several data ranks make it, "
+            f"{step_ms['all-reduce']:.2f} ms, its result equal to its "
+            f"input")
+
+        # B1 and B1b on one sharded step's own inputs, read off its graph
+        gen.manual_seed(3000)
+        step_losses = trainer.losses(*tb, generator=gen)  # one rank: all rows
+        captured = roi_backward_inputs(step_losses["total_loss"])
+        roi, bwd = {}, {}
+        for pool in sorted(captured):
+            feats, boxes, strides, grad_out, levels = captured[pool]
+            label = f"N={boxes.shape[1]} P={pool}"
+            roi[label] = check_roi_launch("parallel", label, feats, strides,
+                                          boxes, None, pool, True)
+            bwd[label] = check_roi_backward(label, feats, boxes, strides,
+                                            pool, grad_out, levels)
+        if len(roi) != 2:
+            raise AssertionError(f"captured ROIAlign launches {sorted(roi)}")
+        del captured, step_losses, trainer, plain, res
+        torch.cuda.empty_cache()
+        return {"backend": backend, "world_size": world,
+                "steps": PAR_STEPS, "losses": losses, "wall_s": wall,
+                "roi_align_launches": fwd_n,
+                "roi_align_backward_launches": bwd_n,
+                "bit_equal": not diff, "step_ms": step_ms,
+                "grad_elements": n_grad, "roi": roi, "bwd": bwd}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4425,6 +4693,9 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         so_train = phase_so_train(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = phase_parallel(tmp)
     imgs_roi = (list(imgs["check"]["roi"].values())
                 + list(imgs["options_check"]["roi"].values())
                 + [imgs["extract_box_feat"]])
@@ -4444,7 +4715,8 @@ def main():
               + [r["err"] for r in imgs_roi]
               + [r["err"] for r in so["roi"].values()]
               + [r["err"] for r in so_train["roi"].values()]
-              + [r["err"] for r in ckpt["check"]["roi"].values()])
+              + [r["err"] for r in ckpt["check"]["roi"].values()]
+              + [r["err"] for r in parallel["roi"].values()])
     bwd = train["bwd"]
     _, k_ms, p_ms, b_ms, d_ms = kres[(1000, torch.bfloat16)]
     _, k100, p100, b100, d100 = kres[(100, torch.bfloat16)]
@@ -4488,6 +4760,8 @@ def main():
             "multilevel_roi_align_cuda"],
         "so_train_per_launch": so_train["roi"],
         "ckpt_launches": ckpt["roi_launches"],
+        "parallel_launches": parallel["roi_align_launches"],
+        "parallel_per_launch": parallel["roi"],
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -4515,7 +4789,9 @@ def main():
                   "timed; so_*: phase 17's small-object heads, the SO "
                   "pooling's launch (N=310 P=7, B=8) of the forwards and "
                   "(N=300 P=7, B=2) of the train steps, timed on their own "
-                  "inputs"},
+                  "inputs; parallel_*: phase 19's data-parallel train steps "
+                  "(NCCL, world size 1; the training phase's shapes), "
+                  "one step's launches timed on their own inputs"},
         {"name": "roi_align_backward", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"
@@ -4524,7 +4800,8 @@ def main():
          "max_abs_err": max(r["err_f32"] for r in list(bwd.values()) + list(
              quality["r18-mask"]["bwd"].values())
              + list(track_quality["bwd"].values())
-             + list(so_train["bwd"].values())),
+             + list(so_train["bwd"].values())
+             + list(parallel["bwd"].values())),
          "max_abs_err_bf16": max(r["err_bf16"] for r in bwd.values()),
          "ms": sum(r["ms"] for r in bwd.values()),
          "device_ms": sum(r["device_ms"] for r in bwd.values()),
@@ -4538,6 +4815,8 @@ def main():
          "so_train_launches": so_train["launches"][
              "multilevel_roi_align_backward_cuda"],
          "so_train_per_launch": so_train["bwd"],
+         "parallel_launches": parallel["roi_align_backward_launches"],
+         "parallel_per_launch": parallel["bwd"],
          "shapes": "the training step's two launches (B=2, 1088x1920 "
                    "pyramid, C=256, bf16 features, float32 grad_out): box "
                    "head N=512 P=7, mask head fg rows P=14; max_abs_err "
@@ -4550,7 +4829,8 @@ def main():
                    "overhead against bound_ms; max_abs_err also over the "
                    "R18 quality proof step's two launches (B=8, 160 px, "
                    "f32; quality.r18-mask.bwd) and the tracking proof "
-                   "step's one (track_quality_per_launch)"},
+                   "step's one (track_quality_per_launch), and phase "
+                   "19's data-parallel step's two (parallel_per_launch)"},
         {"name": "bottleneck_stage", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/"
                    "bottleneck_stage.cu",
@@ -4605,6 +4885,8 @@ def main():
         "so_train": {k: v for k, v in so_train.items()
                      if k not in ("roi", "bwd", "box_grad")},
         "ckpt": {k: v for k, v in ckpt.items() if k != "check"},
+        "parallel": {k: v for k, v in parallel.items()
+                     if k not in ("roi", "bwd")},
         "card": card}
     print(json.dumps(kernels))
     print(card)

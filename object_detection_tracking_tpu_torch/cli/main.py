@@ -1,8 +1,11 @@
 """Train / test / forward / pack driver (port of
 object_detection_tracking_tpu/cli/main.py:25-523).
 
-  train:   the Faster/Mask R-CNN or EfficientDet train step on one device
-           with the JAX CLI's schedule and optimizer, periodic eval with
+  train:   the Faster/Mask R-CNN or EfficientDet train step with the JAX
+           CLI's schedule and optimizer, on one device, or data-parallel
+           over the ranks ``torchrun`` launches (parallel/mesh.py:
+           NCCL between cards, gloo with ``--device cpu``; rank 0 writes
+           the checkpoints; the periodic eval is sharded), periodic eval with
            best-checkpoint keeping; checkpoints with torch.save (params,
            optimizer state, step), so a resume continues momentum and the
            LR schedule. An EfficientDet's BN statistics are calibrated
@@ -39,12 +42,16 @@ Example:
   python -m object_detection_tracking_tpu_torch.cli.main train \\
     --trainlst train.lst --framepath frames --annopath anno --add_mask \\
     --im_batch_size 2 --num_step 1000 --device cuda
+  torchrun --nproc_per_node 4 \\
+    -m object_detection_tracking_tpu_torch.cli.main train ... \\
+    --im_batch_size 8       # the global batch, 2 a card
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -55,6 +62,7 @@ import torch
 
 from ..config import DetectorConfig, TrainConfig
 from ..models import get_model
+from ..parallel.mesh import launched_by_torchrun
 from ..params import (init_params, params_from_jax, params_to_jax,
                       save_npz_tree)
 from ..train import Trainer
@@ -290,23 +298,32 @@ def train_dataset(args, cfg):
     return ds
 
 
-def run_eval(args, cfg, model, cache=None, dataset=None) -> float:
+def run_eval(args, cfg, model, cache=None, dataset=None, mesh=None) -> float:
     """AP/AR of ``model``'s weights on the validation lst, through an
     inference model of the same config (``is_train=False``) on the same
-    device, one image per batch (the JAX CLI's batch on one device).
-    ``cache`` keeps the inference model across periodic evals.
-    ``dataset`` replaces the lst's ``DetectionTrainDataset`` with any
-    dataset of its ``batches()`` interface, built as the eval needs (batch
-    size 1, no shuffle or flip)."""
+    device, one image per batch and device (the JAX CLI's batch: one image
+    per device of its mesh). With ``mesh``, each data rank loads and runs
+    its own image of each batch of ``n_data`` alone, unpadded, as the
+    one-process eval does; the last batch is padded and its padding
+    skipped, so each image is scored once (JAX ``pad_last``,
+    ``batch_valid``), and every rank gathers the scored images and
+    aggregates them in the val set's order. ``cache`` keeps the inference
+    model across periodic evals, and the eval leaves its scored images
+    there, ``cache["scored"]``: [(index in the val set, detections, gt)],
+    each as ``match_dt_gt`` takes them. ``dataset`` replaces the lst's
+    ``DetectionTrainDataset`` with any dataset of its ``batches()``
+    interface (with ``mesh``, one of its kind), built as the eval needs
+    (batches of one image per data rank, no shuffle or flip)."""
     from ..data.training import DetectionTrainDataset
     from ..evaluation import (aggregate_eval, gather_dt, gather_gt,
                               match_dt_gt, weighted_average)
+    n_data = 1 if mesh is None else mesh.n_data
     ds = dataset
     if ds is None:
         ds = DetectionTrainDataset(
             args.vallst, args.valframepath or args.framepath,
             args.valannopath or args.annopath, cfg.classname2id,
-            cfg.short_edge_size, cfg.max_size, batch_size=1,
+            cfg.short_edge_size, cfg.max_size, batch_size=n_data,
             max_gt=args.max_gt, shuffle=False, flip_prob=0.0,
             act_as_obj=args.act_as_obj, act_mapping=_act_mapping(args))
         if args.val_skip > 1:
@@ -321,10 +338,18 @@ def run_eval(args, cfg, model, cache=None, dataset=None) -> float:
     infer.load_state_dict(model.state_dict())
 
     eval_target = {name: 1 for name in cfg.classname2id if name != "BG"}
-    e = {c: {} for c in eval_target}
-    img_id = 0
-    for images, gt_boxes, gt_labels, gt_valid, batch_valid in ds.batches(
-            pad_last=True, yield_batch_valid=True):
+    kw = dict(pad_last=True, yield_batch_valid=True)
+    if mesh is None:
+        first, batches = 0, ds.batches(**kw)
+    else:
+        from ..parallel.mesh import rank_batches
+        first = mesh.data_rank * (ds.batch_size // n_data)
+        batches = rank_batches(ds, mesh, whole_shape=False, **kw)
+    scored = []   # (index in the val set, dt, gt) of the images run here
+    for s, (images, gt_boxes, gt_labels, gt_valid, batch_valid) in \
+            enumerate(batches):
+        if not batch_valid.any():    # this rank's row is padding
+            continue
         out = infer(torch.from_numpy(images).to(model.device))
         out = {k: out[k].cpu().numpy() for k in (
             "final_boxes", "final_probs", "final_labels", "final_valid")}
@@ -339,8 +364,16 @@ def run_eval(args, cfg, model, cache=None, dataset=None) -> float:
             gvalid = gt_valid[bi]
             gt = gather_gt(gt_boxes[bi][gvalid], gt_labels[bi][gvalid],
                            eval_target, cfg.classid2name)
-            match_dt_gt(e, img_id, dt, gt, eval_target)
-            img_id += 1
+            scored.append((s * ds.batch_size + first + bi, dt, gt))
+    if mesh is not None:
+        import torch.distributed as dist
+        parts = [None] * n_data
+        dist.all_gather_object(parts, scored, group=mesh.data_group)
+        scored = sorted((t for p in parts for t in p), key=lambda t: t[0])
+    e = {c: {} for c in eval_target}
+    for img_id, (_, dt, gt) in enumerate(scored):
+        match_dt_gt(e, img_id, dt, gt, eval_target)
+    cache["scored"] = scored
     present = {c for c in e
                if any(v["gt_num"] > 0 for v in e[c].values())}
     e = {c: v for c, v in e.items() if c in present}
@@ -354,7 +387,7 @@ def run_eval(args, cfg, model, cache=None, dataset=None) -> float:
     return ap
 
 
-def train(args, cfg, model, ds, log_every: int = 100):
+def train(args, cfg, model, ds, log_every: int = 100, mesh=None):
     """The training loop over ``ds.batches(args.num_epochs)``: resume from
     the latest checkpoint under ``checkpoint_dir(args)``, periodic
     checkpoints and evals, the BN calibration of a model that has
@@ -362,29 +395,46 @@ def train(args, cfg, model, ds, log_every: int = 100):
     Each step's
     random subsamples come from a generator on the model's device seeded
     with the step number, so a resumed run draws what an uninterrupted one
-    does. Returns {"losses": total loss per step run, "step", "best_ap",
-    "trainer"}."""
+    does. With ``mesh`` (parallel/mesh.py) every rank loads its rows of
+    each batch (``rank_batches``) and steps through
+    ``make_sharded_train_step`` on them, the evals are sharded over the
+    ranks, and rank 0 alone prints and writes the checkpoints and
+    ``final.npz``; every rank resumes from the same checkpoint. Returns
+    {"losses": total loss per step run, "step", "best_ap", "trainer"}."""
     device = model.device
+    main_rank = mesh is None or mesh.rank == 0
     steps_per_epoch = max(1, ds.num_samples // args.im_batch_size)
     total_steps = steps_per_epoch * args.num_epochs
     if args.num_step:
         total_steps = min(total_steps, args.num_step)
-    print(f"{ds.num_samples} samples, {total_steps} steps")
+    if main_rank:
+        print(f"{ds.num_samples} samples, {total_steps} steps")
     tcfg = TrainConfig(
         optimizer=args.optimizer, init_lr=args.init_lr, wd=args.wd,
         momentum=args.momentum, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, warmup_init_lr=args.init_lr / 10,
         total_steps=total_steps,
         clip_gradient_norm=args.clip_gradient_norm)
-    trainer = Trainer(model, tcfg)
+    if mesh is None:
+        trainer = Trainer(model, tcfg)
+        step_fn = trainer.step
+        batches = ds.batches(args.num_epochs)
+    else:
+        from ..parallel.mesh import make_sharded_train_step, rank_batches
+        trainer, sharded = make_sharded_train_step(model, tcfg, mesh)
+        step_fn = functools.partial(sharded, rows_only=True)
+        batches = rank_batches(ds, mesh, args.num_epochs)
     step = 0
     latest = latest_ckpt(checkpoint_dir(args))
     if latest:
         step = load_ckpt(latest, trainer)
-        print(f"resumed from {latest} (step {step})")
+        if main_rank:
+            print(f"resumed from {latest} (step {step})")
 
     def tensor(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        # the sharded step moves the rank's rows to its device
+        return t if mesh is not None else t.to(device)
 
     generator = torch.Generator(device=device)
     loss_ma = deque(maxlen=400)
@@ -392,51 +442,66 @@ def train(args, cfg, model, ds, log_every: int = 100):
     best_ap = -1.0
     eval_cache = {}
     t0 = time.time()
-    for batch in ds.batches(args.num_epochs):
+    for batch in batches:
         if step >= total_steps:
             break
         images, gt_boxes, gt_labels, gt_valid = [tensor(x)
                                                  for x in batch[:4]]
         gt_masks = tensor(batch[4]) if cfg.add_mask else None
         generator.manual_seed(step)
-        losses = trainer.step(images, gt_boxes, gt_labels, gt_valid,
-                              gt_masks, generator=generator)
+        losses = step_fn(images, gt_boxes, gt_labels, gt_valid, gt_masks,
+                         generator=generator)
         step += 1
         totals.append(float(losses["total_loss"]))
         loss_ma.append(totals[-1])
-        if step % log_every == 0:
+        if step % log_every == 0 and main_rank:
             print("step %d/%d loss(ma) %.4f %.2f steps/s" % (
                 step, total_steps, np.mean(loss_ma),
                 log_every / max(time.time() - t0, 1e-6)))
             t0 = time.time()
-        if step % args.save_every == 0:
+        if step % args.save_every == 0 and main_rank:
             save_ckpt(checkpoint_dir(args), trainer, step)
         if args.vallst and step % args.eval_every == 0 and \
                 not (args.skip_first_eval and step == args.eval_every):
-            ap = run_eval(args, cfg, model, cache=eval_cache)
+            ap = run_eval(args, cfg, model, cache=eval_cache, mesh=mesh)
             if ap > best_ap:
                 best_ap = ap
-                save_ckpt(checkpoint_dir(args, best=True), trainer, step)
+                if main_rank:
+                    save_ckpt(checkpoint_dir(args, best=True), trainer, step)
+    if mesh is not None:
+        batches.close()   # rank_batches gives the dataset its loader back
     if hasattr(model, "calibrate_bn"):
         # EfficientDet trains with batch-statistics BN: write the
         # precise-BN population statistics before the final checkpoint
-        # and final.npz, so that both serve inference
+        # and final.npz, so that both serve inference (every rank
+        # calibrates on the same batches and stays equal)
         model.calibrate_bn(b[0] for b in ds.batches(1))
-    save_ckpt(checkpoint_dir(args), trainer, step)
-    save_npz_tree(os.path.join(args.outbasepath, args.modelname,
-                               "final.npz"), params_to_jax(model))
-    print("done; best AP", best_ap)
+    if main_rank:
+        save_ckpt(checkpoint_dir(args), trainer, step)
+        save_npz_tree(os.path.join(args.outbasepath, args.modelname,
+                                   "final.npz"), params_to_jax(model))
+        print("done; best AP", best_ap)
     return {"losses": totals, "step": step, "best_ap": best_ap,
             "trainer": trainer}
 
 
 def mode_train(args, dataset=None):
     """Build the model on ``--device`` and train it on ``dataset`` (by
-    default the ``DetectionTrainDataset`` the flags name)."""
+    default the ``DetectionTrainDataset`` the flags name). Under
+    ``torchrun`` (also with one process) it trains data-parallel over the
+    launched ranks (JAX: always over its mesh): NCCL and the rank's card
+    (``cuda:LOCAL_RANK``) with ``--device cuda``, gloo with ``--device
+    cpu``; ``--im_batch_size`` is the global batch and must divide over the
+    ranks."""
     device = resolve_device(args.device)
+    mesh = None
+    if launched_by_torchrun():
+        from ..parallel.mesh import init_distributed, make_mesh
+        device = init_distributed(device.type)
+        mesh = make_mesh(n_model=1, device=device)
     cfg, model = build(args, is_train=True, device=device)
     ds = dataset if dataset is not None else train_dataset(args, cfg)
-    return train(args, cfg, model, ds)
+    return train(args, cfg, model, ds, mesh=mesh)
 
 
 def mode_test(args) -> float:

@@ -38,6 +38,7 @@ import json
 import os
 import sys
 import time
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,7 +109,11 @@ def get_args(argv=None):
                         help="bfloat16 | float32; default bfloat16 on the "
                         "GPU, float32 on the CPU")
     parser.add_argument("--device", default="cuda",
-                        help="cuda | cuda:N | cpu (no silent CPU fallback)")
+                        help="cuda | cuda:N | cpu (no silent CPU fallback); "
+                        "a comma-separated list (cuda:0,cuda:1) splits "
+                        "each batch over one model replica per device, in "
+                        "this process (slower than one card where the "
+                        "host is the bound: README)")
     parser.add_argument("--add_mask", action="store_true",
                         help="Mask-RCNN head: per-detection RLE "
                         "segmentation in the frame json")
@@ -183,6 +188,12 @@ def resolve_device(name: str) -> torch.device:
             "--device cuda but torch.cuda.is_available() is False; pass "
             "--device cpu to run on the CPU")
     return device
+
+
+def resolve_devices(spec: str) -> List[torch.device]:
+    """The devices of a comma-separated ``--device`` (each as
+    ``resolve_device``)."""
+    return [resolve_device(name.strip()) for name in spec.split(",")]
 
 
 def build_config(args, device: torch.device) -> DetectorConfig:
@@ -437,11 +448,24 @@ def load_model(args, cfg, device: torch.device):
     return model.to(device).eval()
 
 
-def build_runner(args, cfg, device: torch.device) -> DetectionRunner:
-    """``load_model``'s detector wrapped in the pipelined runner."""
+def build_runner(args, cfg, device: torch.device,
+                 devices: Optional[Sequence[torch.device]] = None
+                 ) -> DetectionRunner:
+    """``load_model``'s detector wrapped in the pipelined runner; with
+    several ``devices`` that ``--im_batch_size`` divides over, each batch
+    is split over one replica per device (JAX CLI :409-419: the batch
+    sharded over every chip)."""
+    if devices is not None and len(devices) > 1:
+        if args.im_batch_size % len(devices):
+            print(f"warning: --im_batch_size {args.im_batch_size} does not "
+                  f"divide over {len(devices)} devices; running on "
+                  f"{devices[0]}", file=sys.stderr)
+            devices = None
+        else:
+            print(f"inference split over {len(devices)} devices")
     return DetectionRunner(load_model(args, cfg, device),
                            emb_agg=args.emb_agg_method,
-                           ship_full_feat=args.get_box_feat)
+                           ship_full_feat=args.get_box_feat, devices=devices)
 
 
 @contextlib.contextmanager
@@ -467,11 +491,12 @@ def main(argv=None):
     args = get_args(argv)
     if args.get_box_feat and args.box_feat_path is None:
         raise ValueError("--get_box_feat needs --box_feat_path")
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
+    device = devices[0]
     cfg = build_config(args, device)
     runner = None
     if not args.test_frame_extraction:
-        runner = build_runner(args, cfg, device)
+        runner = build_runner(args, cfg, device, devices)
 
     classid2name = cfg.classid2name
     coco_to_actev = None

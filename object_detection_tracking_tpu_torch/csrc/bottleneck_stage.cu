@@ -74,7 +74,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// A kernel's attribute belongs to the current device's context: a process
+// that launches on several cards sets it on each, once (bit d of `done`
+// marks device d; a device past 63 sets it at every launch).
+template <typename Set>
+cudaError_t once_per_device(std::atomic<unsigned long long>& done, Set set) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 using bf16 = __nv_bfloat16;
 
@@ -770,15 +787,18 @@ bool encode_2d(EncodeTiled encode, CUtensorMap* map, const void* base,
 template <int BN, int STAGES, int LAG>
 cudaError_t launch_wgmma(const Conv& a, cudaStream_t stream) {
   using R = Ring<BN, STAGES>;
-  // dynamic shared memory above 48 KB, set once per kernel
-  static const cudaError_t attr1 = cudaFuncSetAttribute(
-      bneck_conv1x1_bf16<BN, STAGES, LAG>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM_BYTES);
-  static const cudaError_t attr9 = cudaFuncSetAttribute(
-      bneck_conv3x3_bf16<BN, STAGES, LAG>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM_BYTES);
-  if (attr1 != cudaSuccess) return attr1;
-  if (attr9 != cudaSuccess) return attr9;
+  // dynamic shared memory above 48 KB, set once per kernel and device
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t attr = once_per_device(done, [] {
+    cudaError_t err = cudaFuncSetAttribute(
+        bneck_conv1x1_bf16<BN, STAGES, LAG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(
+        bneck_conv3x3_bf16<BN, STAGES, LAG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM_BYTES);
+  });
+  if (attr != cudaSuccess) return attr;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
 

@@ -69,7 +69,24 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// A kernel's attribute belongs to the current device's context: a process
+// that launches on several cards sets it on each, once (bit d of `done`
+// marks device d; a device past 63 sets it at every launch).
+template <typename Set>
+cudaError_t once_per_device(std::atomic<unsigned long long>& done, Set set) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -306,10 +323,12 @@ template <typename T, int kVec>
 cudaError_t launch(const dim3& grid, cudaStream_t st, const Levels& lv,
                    const float* b, const int* lvl, const bool* v, float* o,
                    int rois_per_image, int c, int pool) {
-  static const cudaError_t carveout = cudaFuncSetAttribute(
-      roi_align_fwd_kernel<T, kVec>,
-      cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxL1);
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t carveout = once_per_device(done, [] {
+    return cudaFuncSetAttribute(roi_align_fwd_kernel<T, kVec>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxL1);
+  });
   if (carveout != cudaSuccess) return carveout;
   roi_align_fwd_kernel<T, kVec><<<grid, kThreads, 0, st>>>(
       lv, b, lvl, v, o, rois_per_image, c, pool);
@@ -946,8 +965,11 @@ cudaError_t launch_bwd(int items, cudaStream_t st, const GradLevels& lv,
   constexpr int kSmem =
       kTileH * kCopies * (kTileW + 1) * 32 * kVec * sizeof(float);
   const auto kernel = roi_align_bwd_tile_kernel<T, kVec>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t attr = once_per_device(done, [kernel] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  });
   if (attr != cudaSuccess) return attr;
   int device, sms, per_sm;
   cudaError_t err = cudaGetDevice(&device);
@@ -1236,10 +1258,12 @@ cudaError_t launch_box_grad(const dim3& grid, cudaStream_t st,
                             const Levels& lv, const float* b, const int* lvl,
                             const float* g, float* o, int rois_per_image,
                             int c, int pool) {
-  static const cudaError_t carveout = cudaFuncSetAttribute(
-      roi_align_box_grad_kernel<T, kVec>,
-      cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxL1);
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t carveout = once_per_device(done, [] {
+    return cudaFuncSetAttribute(roi_align_box_grad_kernel<T, kVec>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxL1);
+  });
   if (carveout != cudaSuccess) return carveout;
   roi_align_box_grad_kernel<T, kVec><<<grid, kThreads, 0, st>>>(
       lv, b, lvl, g, o, rois_per_image, c, pool);

@@ -39,6 +39,7 @@ on the card); the ROIAlign reads the levels as NHWC views.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List
 
 import numpy as np
@@ -50,6 +51,7 @@ from ...ops.boxes import clip_boxes
 from ...ops.nms import nms, sort_desc_stable
 from ...ops.norm import FrozenBN, batch_bn, batch_stats, frozen_bn
 from ...ops.roi_align import multilevel_roi_align, multilevel_roi_align_cuda
+from ...parallel.mesh import data_sum
 from ...train.losses import focal_loss, huber
 from ...train.targets import effdet_anchor_targets
 from ..faster_rcnn import FasterRCNNFPN, _gather_rows
@@ -399,8 +401,8 @@ class EfficientDet(nn.Module):
     # ------------------------------------------------------------------
 
     def forward_train(self, images, gt_boxes, gt_labels, gt_valid,
-                      gt_masks=None, generator=None, noise=None
-                      ) -> Dict[str, torch.Tensor]:
+                      gt_masks=None, generator=None, noise=None,
+                      sync_group=None) -> Dict[str, torch.Tensor]:
         """Training losses (JAX efficientdet.py:382-425): automl's recipe,
         focal loss (alpha 0.25, gamma 1.5) over sigmoid class logits and
         huber (delta 0.1) over the fg anchors' box deltas, weighted 50,
@@ -408,10 +410,14 @@ class EfficientDet(nn.Module):
         signature, so ``Trainer`` drives either model; the anchor labeling
         draws nothing, so ``gt_masks``, ``generator`` and ``noise`` are
         ignored. images [B, h, w, 3] BGR, gt_* [B, G, ...] padded with
-        ``gt_valid``."""
+        ``gt_valid``. ``sync_group``: the process group of a data-parallel
+        step's ranks (parallel/mesh.py), over which the BN statistics and
+        the positive count are the whole batch's, as JAX's are under
+        pjit."""
         b = images.shape[0]
-        feats = self.features(images, bn=batch_bn)
-        cls_flat, box_flat = self.flat_heads(*self.heads(feats, bn=batch_bn))
+        bn = functools.partial(batch_bn, group=sync_group)
+        feats = self.features(images, bn=bn)
+        cls_flat, box_flat = self.flat_heads(*self.heads(feats, bn=bn))
         anchors, _ = self._anchor_set()
         cls_t, box_t, fg = effdet_anchor_targets(anchors, gt_boxes,
                                                  gt_labels, gt_valid)
@@ -419,7 +425,11 @@ class EfficientDet(nn.Module):
         # the all-zero row, as JAX's one_hot(label - 1) does
         classes = torch.arange(1, self.num_classes + 1, device=cls_t.device)
         onehot = (cls_t[..., None] == classes).float()       # [B, N, C]
-        num_pos = fg.sum().float().clamp_min(1.0)
+        # JAX counts the positives of the whole batch: in a data-parallel
+        # step each rank divides by its share of the global count, so the
+        # ranks' mean loss is the global batch's
+        num_pos, n_ranks = data_sum(fg.sum().float(), sync_group)
+        num_pos = num_pos.clamp_min(1.0) / n_ranks
         cls_loss = focal_loss(cls_flat, onehot, alpha=0.25,
                               gamma=1.5).sum() / num_pos
         box_err = huber(box_flat - box_t, delta=0.1)

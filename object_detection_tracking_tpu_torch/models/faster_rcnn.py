@@ -611,8 +611,8 @@ class FasterRCNNFPN(nn.Module):
                       gt_labels: torch.Tensor, gt_valid: torch.Tensor,
                       gt_masks: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> Dict[str, torch.Tensor]:
+                      noise: Optional[Dict[str, torch.Tensor]] = None,
+                      sync_group=None) -> Dict[str, torch.Tensor]:
         """Training losses (JAX faster_rcnn.py:679-781). images [B, h, w, 3]
         BGR; gt_boxes [B, G, 4] padded; gt_labels [B, G] int (1..C-1);
         gt_valid [B, G] bool; gt_masks optional [B, G, Ms, Ms] box-local
@@ -620,7 +620,10 @@ class FasterRCNNFPN(nn.Module):
         subsamples draw from ``generator``, or take ``noise``: uniform draws
         "rpn_fg", "rpn_bg" [B, NA] (NA anchors over all levels) and
         "frcnn_fg", "frcnn_bg" [B, K + G] (K train proposals). Returns
-        scalar losses and their sum, "total_loss"."""
+        scalar losses and their sum, "total_loss". Every loss is a mean
+        over images and the BNs are frozen, so a data-parallel step's ranks
+        need nothing of each other here: ``sync_group`` (EfficientDet's
+        signature) is not read."""
         cfg = self.config
         noise = noise or {}
         b, h, w = images.shape[:3]

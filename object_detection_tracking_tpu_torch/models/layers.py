@@ -62,13 +62,24 @@ def conv2d(p: Conv, x: torch.Tensor, stride: int = 1,
                     dilation, p.groups)
 
 
+def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``p`` over the last axis in ``x``'s dtype; a layer whose kernel is
+    split over devices (``parallel/mesh.py shard_params``) computes its
+    rows there and gathers the rest."""
+    if getattr(p, "tp", None) is not None:
+        from ..parallel.mesh import column_parallel_linear
+        return column_parallel_linear(p, x)
+    bias = None if p.bias is None else p.bias.to(x.dtype)
+    return F.linear(x, p.weight.to(x.dtype), bias)
+
+
 def dense(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """Dense over the last axis; >2D inputs flatten to [N, -1] first in
     their own (NHWC-major for ROI features) order, which fc6's rows follow
     (JAX layers.py:88-97)."""
     if x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
-    return F.linear(x, p.weight.to(x.dtype), p.bias.to(x.dtype))
+    return linear(p, x)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int,

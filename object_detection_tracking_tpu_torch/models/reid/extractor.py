@@ -29,13 +29,23 @@ import torch.nn.functional as F
 
 from .common import ReIDNet
 from .densenet_reid import DenseNetReID
+from .hacnn_reid import HACNNReID
 from .ibn_reid import IBNReID
+from .inceptionresnetv2_reid import InceptionResNetV2ReID
+from .inceptionv4_reid import InceptionV4ReID
+from .mlfn_reid import MLFNReID
 from .mobilenetv2 import MobileNetV2ReID
+from .mudeep_reid import MuDeepReID
+from .nasnet_reid import NASNetAMobileReID
 from .osnet import OSNet, OSNetAIN
+from .pcb_reid import PCBReID
 from .resnet_reid import ResNetReID
+from .resnetmid_reid import ResNetMidReID
 from .senet_reid import SENetReID
 from .shufflenet_reid import ShuffleNetV2ReID
+from .shufflenetv1_reid import ShuffleNetV1ReID
 from .squeezenet_reid import SqueezeNetReID
+from .xception_reid import XceptionReID
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -57,27 +67,28 @@ for _net, _names in (
         (SqueezeNetReID, ("squeezenet1_0", "squeezenet1_0_fc512",
                           "squeezenet1_1")),
         (ShuffleNetV2ReID, ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
-                            "shufflenet_v2_x1_5", "shufflenet_v2_x2_0"))):
+                            "shufflenet_v2_x1_5", "shufflenet_v2_x2_0")),
+        (PCBReID, ("pcb_p6", "pcb_p4")),
+        (MLFNReID, ("mlfn",)),
+        (ResNetMidReID, ("resnet50mid",)),
+        (ShuffleNetV1ReID, ("shufflenet",)),
+        (HACNNReID, ("hacnn",)),
+        (MuDeepReID, ("mudeep",)),
+        (XceptionReID, ("xception",)),
+        (InceptionV4ReID, ("inceptionv4",)),
+        (InceptionResNetV2ReID, ("inceptionresnetv2",)),
+        # the reference registry's typo'd key stays an alias
+        (NASNetAMobileReID, ("nasnetamobile", "nasnsetmobile"))):
     MODELS.update({name: partial(_net, name) for name in _names})
-
-# the JAX registry's other names (extractor.py:46-102), not ported yet
-NOT_PORTED = (
-    "pcb_p6", "pcb_p4", "mlfn", "resnet50mid", "shufflenet", "hacnn",
-    "mudeep", "xception", "inceptionv4", "inceptionresnetv2",
-    "nasnetamobile", "nasnsetmobile")
 
 # models with a hard input-size requirement (an assert in torchreid)
 FIXED_IMAGE_SIZE = {"hacnn": (160, 64), "mudeep": (256, 128)}
 
 
 def check_reid_model(name: str):
-    """Raises unless ``name`` is a ported registry name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"reid model {name!r} is not ported yet (ROADMAP A11b)")
+    """Raises unless ``name`` is a registry name."""
     if name not in MODELS:
-        raise ValueError(f"unknown reid model {name!r}; have "
-                         f"{list(MODELS) + list(NOT_PORTED)}")
+        raise ValueError(f"unknown reid model {name!r}; have {list(MODELS)}")
 
 
 def build_reid_model(name: str) -> ReIDNet:

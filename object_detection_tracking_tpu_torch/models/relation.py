@@ -34,8 +34,9 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from .layers import linear
 
 
 class Relation(nn.Module):
@@ -56,9 +57,6 @@ class Relation(nn.Module):
                                        bias=False)
 
 
-def _linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    bias = None if p.bias is None else p.bias.to(x.dtype)
-    return F.linear(x, p.weight.to(x.dtype), bias)
 
 
 def geometric_encoding(boxes: torch.Tensor, ref_boxes: torch.Tensor
@@ -99,12 +97,12 @@ def relation_attend(p: Relation, feat: torch.Tensor, boxes: torch.Tensor,
         ref_boxes = torch.where(ref_valid[..., None], ref_boxes, unit)
 
     geo = geometric_encoding(boxes.float(), ref_boxes.float())  # [B,K,R,4]
-    geo = torch.tanh(_linear(p.geo_emb, geo))
-    geo = _linear(p.geo_conv, geo)                               # [B,K,R,G]
+    geo = torch.tanh(linear(p.geo_emb, geo))
+    geo = linear(p.geo_conv, geo)                               # [B,K,R,G]
     geo_w = torch.clamp(torch.relu(geo), min=1e-6).transpose(2, 3)
 
-    q = _linear(p.query_linear, feat).reshape(b, k, group, gd)
-    kk = _linear(p.key_linear, ref_feat).reshape(b, r, group, gd)
+    q = linear(p.query_linear, feat).reshape(b, k, group, gd)
+    kk = linear(p.key_linear, ref_feat).reshape(b, r, group, gd)
     logits = torch.einsum("bkgd,brgd->bkgr", q, kk) / math.sqrt(gd)
     logits = torch.log(geo_w) + logits.float()                   # [B,K,G,R]
     if ref_valid is not None:
@@ -114,7 +112,7 @@ def relation_attend(p: Relation, feat: torch.Tensor, boxes: torch.Tensor,
         valid = (any_ref if valid is None else valid & any_ref).expand(b, k)
     weighted = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgr,brd->bkgd", weighted, ref_feat.float())
-    out = _linear(p.output_linear, out.reshape(b, k, group * d))
+    out = linear(p.output_linear, out.reshape(b, k, group * d))
     if valid is not None:
         out = torch.where(valid[..., None], out, 0.0)
     return out

@@ -26,6 +26,8 @@ input's dtype.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 from torch import nn
 
 BN_EPS = 1e-5
@@ -56,22 +58,32 @@ def bn_relu(bn: FrozenBN, x: torch.Tensor) -> torch.Tensor:
     return torch.relu(frozen_bn(bn, x))
 
 
-def batch_stats(x: torch.Tensor):
+def batch_stats(x: torch.Tensor, group=None):
     """Per-channel float32 (mean, variance) of ``x`` over every dim but 1,
-    as JAX computes them: E[x^2] - mean^2, not a two-pass variance."""
+    as JAX computes them: E[x^2] - mean^2, not a two-pass variance. With
+    ``group`` (a data-parallel step's process group, parallel/mesh.py) the
+    moments are summed over its ranks, so every rank normalises with the
+    global batch's statistics, as JAX's are under pjit."""
     dims = (0,) + tuple(range(2, x.dim()))
     xf = x.float()
-    mu = xf.mean(dims)
-    return mu, xf.square().mean(dims) - mu.square()
+    if group is None:
+        mu = xf.mean(dims)
+        return mu, xf.square().mean(dims) - mu.square()
+    sums = dist_fn.all_reduce(
+        torch.stack([xf.sum(dims), xf.square().sum(dims)]), group=group)
+    n = xf.numel() // xf.shape[1] * dist.get_world_size(group)
+    mu = sums[0] / n
+    return mu, sums[1] / n - mu.square()
 
 
-def batch_bn(bn: FrozenBN, x: torch.Tensor) -> torch.Tensor:
+def batch_bn(bn: FrozenBN, x: torch.Tensor, group=None) -> torch.Tensor:
     """Training-mode BN: normalise with the batch's own statistics
-    (``batch_stats``), then gamma/beta. The scale and offset fold in f32
-    and apply in ``x``'s dtype, as ``frozen_bn``'s do; the gradient flows
-    through the statistics. ``bn``'s stored mean and variance are not
-    read (``EfficientDet.calibrate_bn`` writes them after training)."""
-    mu, var = batch_stats(x)
+    (``batch_stats``, over ``group``'s ranks where given), then
+    gamma/beta. The scale and offset fold in f32 and apply in ``x``'s
+    dtype, as ``frozen_bn``'s do; the gradient flows through the
+    statistics. ``bn``'s stored mean and variance are not read
+    (``EfficientDet.calibrate_bn`` writes them after training)."""
+    mu, var = batch_stats(x, group)
     scale = bn.gamma / torch.sqrt(var + BN_EPS)
     offset = bn.beta - mu * scale
     shape = (1, -1) + (1,) * (x.dim() - 2)

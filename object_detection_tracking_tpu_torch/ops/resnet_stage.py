@@ -230,11 +230,13 @@ def fused_bottleneck_stage_cuda(blocks: Sequence, x: torch.Tensor,
     sc = torch.empty_like(out) if has_sc[0] else empty
     tmp = torch.empty_like(out) if len(has_sc) > 1 else empty
     ptrs = (ctypes.c_void_p * len(args))(*[t.data_ptr() for t in args])
-    err = _cuda_lib()(
-        x.data_ptr(), out.data_ptr(), l1.data_ptr(), l2.data_ptr(),
-        sc.data_ptr(), tmp.data_ptr(), ptrs, len(has_sc), int(has_sc[0]),
-        b, h, w, c_in, width, c_out, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):   # the runtime's launch device
+        err = _cuda_lib()(
+            x.data_ptr(), out.data_ptr(), l1.data_ptr(), l2.data_ptr(),
+            sc.data_ptr(), tmp.data_ptr(), ptrs, len(has_sc),
+            int(has_sc[0]), b, h, w, c_in, width, c_out,
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"bottleneck_stage kernel launch failed: CUDA error {err}")

@@ -337,13 +337,14 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
-    err = _cuda_lib()(
-        *[f.data_ptr() for f in features], *[None] * pad, *dims,
-        *[0, 0] * pad, *[int(s) for s in strides], *[1] * pad, len(features),
-        boxes.data_ptr(), lvl.data_ptr(),
-        valid.data_ptr() if valid is not None else None, out.data_ptr(),
-        b, n, c, output_size, int(dtype == torch.bfloat16),
-        torch.cuda.current_stream(boxes.device).cuda_stream)
+    with torch.cuda.device(boxes.device):   # the runtime's launch device
+        err = _cuda_lib()(
+            *[f.data_ptr() for f in features], *[None] * pad, *dims,
+            *[0, 0] * pad, *[int(s) for s in strides], *[1] * pad,
+            len(features), boxes.data_ptr(), lvl.data_ptr(),
+            valid.data_ptr() if valid is not None else None, out.data_ptr(),
+            b, n, c, output_size, int(dtype == torch.bfloat16),
+            torch.cuda.current_stream(boxes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: CUDA error {err}")
     multilevel_roi_align_cuda.launches += 1
@@ -390,11 +391,12 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
-    err = _cuda_fn("roi_align_backward", _BWD_ARGTYPES)(
-        out.data_ptr(), scratch.data_ptr(), scratch.numel(), *dims,
-        *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
-        grad_out.data_ptr(), b, n, c, p, int(dtype == torch.bfloat16),
-        torch.cuda.current_stream(boxes.device).cuda_stream)
+    with torch.cuda.device(boxes.device):
+        err = _cuda_fn("roi_align_backward", _BWD_ARGTYPES)(
+            out.data_ptr(), scratch.data_ptr(), scratch.numel(), *dims,
+            *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
+            grad_out.data_ptr(), b, n, c, p, int(dtype == torch.bfloat16),
+            torch.cuda.current_stream(boxes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"roi_align backward kernel launch failed: CUDA error {err}")
@@ -435,12 +437,13 @@ def multilevel_roi_align_box_grad_cuda(features: Sequence[torch.Tensor],
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
-    err = _cuda_fn("roi_align_box_grad", _BOX_ARGTYPES)(
-        *[f.data_ptr() for f in features], *dims,
-        *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
-        grad_out.data_ptr(), out.data_ptr(), b, n, c, p,
-        int(dtype == torch.bfloat16),
-        torch.cuda.current_stream(boxes.device).cuda_stream)
+    with torch.cuda.device(boxes.device):
+        err = _cuda_fn("roi_align_box_grad", _BOX_ARGTYPES)(
+            *[f.data_ptr() for f in features], *dims,
+            *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
+            grad_out.data_ptr(), out.data_ptr(), b, n, c, p,
+            int(dtype == torch.bfloat16),
+            torch.cuda.current_stream(boxes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"roi_align box-gradient kernel launch failed: CUDA error {err}")

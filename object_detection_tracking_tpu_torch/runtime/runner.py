@@ -22,6 +22,8 @@ from typing import Dict, Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import on_device, replicate, split_batch
+
 
 class DetectionRunner:
     """Runs a detector module over batches with software pipelining.
@@ -30,15 +32,24 @@ class DetectionRunner:
         runner = DetectionRunner(model)
         for host_out, meta in runner.run(batch_iter):  # meta passthrough
             ...
+
+    With more than one of ``devices``, each batch that divides over them is
+    split over one replica of ``model`` per device (parallel/mesh.py
+    ``replicate`` and ``split_batch``; JAX: the batch sharded over its
+    mesh, runner.py:35-84), and the outputs come back in batch order; a
+    batch that does not divide runs on the first device. Each replica's
+    copies and forward run with its card as the current device.
     """
 
     FETCH_KEYS = ("final_boxes", "final_labels", "final_probs",
                   "final_valid", "pooled_box_feat")
 
     def __init__(self, model, depth: int = 2, emb_agg: str = "average",
-                 ship_full_feat: bool = False):
-        self.model = model
-        self.device = model.device
+                 ship_full_feat: bool = False, devices=None):
+        self.replicas = [model] if devices is None or len(devices) < 2 \
+            else replicate(model, [torch.device(d) for d in devices])
+        self.model = self.replicas[0]
+        self.device = self.model.device
         self.depth = max(1, depth)
         # tracking-embedding aggregation over the 7x7 ROI feature grid
         # (reference obj_detect_tracking_multi_queuer_tmot.py:512-525):
@@ -51,25 +62,28 @@ class DetectionRunner:
         # --get_box_feat: also read back the full [R, 7, 7, C] features
         self.ship_full_feat = ship_full_feat
         self._cuda = self.device.type == "cuda"
-        self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
-                             else None)
+        self._copy_streams = {r.device: torch.cuda.Stream(r.device)
+                              for r in self.replicas
+                              if r.device.type == "cuda"}
 
-    def _upload(self, images: np.ndarray):
-        """Start the copy of one batch; returns (device tensor, host tensor
-        that must live until the copy is done)."""
+    def _upload(self, images: np.ndarray, device: torch.device):
+        """Start the copy of one batch to ``device``; returns (device
+        tensor, host tensor that must live until the copy is done)."""
         host = torch.from_numpy(np.ascontiguousarray(images))
-        if not self._cuda:
-            return host.to(self.device), host
+        if device.type != "cuda":
+            return host.to(device), host
         host = host.pin_memory()
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            dev = host.to(self.device, non_blocking=True)
-        compute.wait_stream(self._copy_stream)
+        compute = torch.cuda.current_stream(device)
+        stream = self._copy_streams[device]
+        with torch.cuda.stream(stream):
+            dev = host.to(device, non_blocking=True)
+        compute.wait_stream(stream)
         dev.record_stream(compute)
         return dev, host
 
-    def _forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = self.model(images)
+    def _forward(self, model, images: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        out = model(images)
         b, r = out["final_boxes"].shape[:2]
         if self.emb_agg != "average" or self.ship_full_feat:
             if "fpn_box_feat" not in out:
@@ -91,21 +105,27 @@ class DetectionRunner:
             fetch["fpn_box_feat"] = out["fpn_box_feat"].to(torch.bfloat16)
         return fetch
 
-    def _to_host_async(self, fetch: Dict[str, torch.Tensor]):
-        if not self._cuda:
+    @staticmethod
+    def _to_host_async(fetch: Dict[str, torch.Tensor], device):
+        if device.type != "cuda":
             return fetch, None
         # non_blocking device->host copies land in pinned memory
         host = {k: v.to("cpu", non_blocking=True) for k, v in fetch.items()}
         done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        done.record(torch.cuda.current_stream(device))
         return host, done
 
     @staticmethod
-    def _finish(host: Dict[str, torch.Tensor], done) -> Dict[str, np.ndarray]:
-        if done is not None:
-            done.synchronize()
-        return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
-                for k, v in host.items()}
+    def _finish(parts) -> Dict[str, np.ndarray]:
+        outs = []
+        for host, done in parts:
+            if done is not None:
+                done.synchronize()
+            outs.append({k: (v.float() if v.dtype == torch.bfloat16
+                             else v).numpy() for k, v in host.items()})
+        if len(outs) == 1:
+            return outs[0]
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
     def run(self, batches: Iterable[Tuple[np.ndarray, object]]
             ) -> Iterator[Tuple[Dict[str, np.ndarray], object]]:
@@ -121,7 +141,11 @@ class DetectionRunner:
                 images, meta = next(it)
             except StopIteration:
                 return False
-            uploaded.append((self._upload(images), meta))
+            parts = []
+            for r, x in split_batch(self.replicas, images):
+                with on_device(r.device):
+                    parts.append((r, self._upload(x, r.device)))
+            uploaded.append((parts, meta))
             return True
 
         more = True
@@ -130,14 +154,18 @@ class DetectionRunner:
             if not more:
                 break
         while uploaded:
-            (dev, host_in), meta = uploaded.popleft()
-            pending = self._to_host_async(self._forward(dev))
-            inflight.append((pending, meta, host_in))
+            parts, meta = uploaded.popleft()
+            pending = []
+            for r, (dev, _) in parts:
+                with on_device(r.device):
+                    pending.append(self._to_host_async(self._forward(r, dev),
+                                                       r.device))
+            inflight.append((pending, meta, parts))
             if more:
                 more = fill()
             if len(inflight) >= self.depth:
-                (host, done), meta, _ = inflight.popleft()
-                yield self._finish(host, done), meta
+                pending, meta, _ = inflight.popleft()
+                yield self._finish(pending), meta
         while inflight:
-            (host, done), meta, _ = inflight.popleft()
-            yield self._finish(host, done), meta
+            pending, meta, _ = inflight.popleft()
+            yield self._finish(pending), meta

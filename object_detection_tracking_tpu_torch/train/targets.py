@@ -33,9 +33,23 @@ from ..ops.nms import sort_desc_stable
 NEG = -1e30
 
 
+class RowDraws:
+    """A data-parallel rank's share of a generator's draws: where a batch
+    of ``batch`` images would draw [batch, ...] from ``generator``, this
+    draws the same and keeps ``rows``, the rank's images of that batch
+    (parallel/mesh.py). Every rank of a step then draws what one process
+    would for the whole batch."""
+
+    def __init__(self, generator: torch.Generator, batch: int, rows: slice):
+        self.generator = generator
+        self.batch = batch
+        self.rows = rows
+
+
 def _uniform(u: Optional[torch.Tensor], shape, generator, device
              ) -> torch.Tensor:
-    """The given draws, or U[0, 1) draws from ``generator``."""
+    """The given draws, or U[0, 1) draws from ``generator`` (a
+    ``torch.Generator`` or ``RowDraws``)."""
     if u is not None:
         if tuple(u.shape) != tuple(shape):
             raise ValueError(f"uniform draws of shape {tuple(u.shape)}, "
@@ -43,6 +57,11 @@ def _uniform(u: Optional[torch.Tensor], shape, generator, device
         return u.to(device)
     if generator is None:
         raise ValueError("pass the uniform draws or a torch.Generator")
+    if isinstance(generator, RowDraws):
+        full = torch.rand((generator.batch,) + tuple(shape[1:]),
+                          generator=generator.generator,
+                          device=generator.generator.device)
+        return full[generator.rows].to(device)
     return torch.rand(shape, generator=generator,
                       device=generator.device).to(device)
 

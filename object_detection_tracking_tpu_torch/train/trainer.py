@@ -13,8 +13,9 @@ gradient, zeros where no path reaches it (the frozen groups, a head without
 targets); ``Trainer`` fills those zeros, so weight decay still moves frozen
 "W" leaves, as optax does.
 
-Data parallelism (the JAX trainer's mesh) is not ported: the port runs on
-one card (ROADMAP A12).
+The JAX trainer's mesh is ``parallel/mesh.py make_sharded_train_step``,
+which runs this trainer's ``losses``, ``backward`` and ``apply_gradients``
+with the gradients averaged over the data ranks between the last two.
 """
 
 from __future__ import annotations
@@ -86,13 +87,24 @@ class Optimizer:
                                                   eps=1e-6, foreach=True)
         self.count = 0
 
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The global norm the clip reads (parallel/mesh.py replaces it
+        where kernels are split over devices). torch's CPU norm sums each
+        tensor's squares in one running float32 sum (5.4e-4 low on a
+        12.8M-element fc6 gradient); optax's and torch's CUDA reductions
+        sum in trees, and on the CPU ``torch.sum``'s cascade does."""
+        if grads[0].device.type == "cpu":
+            return torch.stack([g.float().square().sum()
+                                for g in grads]).sum().sqrt()
+        return torch.nn.utils.get_total_norm(grads)
+
     @torch.no_grad()
     def step(self) -> None:
         """One update from each parameter's ``.grad`` (all must be set)."""
         cfg = self.cfg
         if cfg.clip_gradient_norm:
             grads = [p.grad for p in self.params.values()]
-            g_norm = torch.nn.utils.get_total_norm(grads)
+            g_norm = self.grad_norm(grads)
             scale = torch.where(g_norm < cfg.clip_gradient_norm,
                                 torch.ones_like(g_norm),
                                 cfg.clip_gradient_norm / g_norm)
@@ -140,10 +152,12 @@ class Trainer:
 
     def losses(self, images, gt_boxes, gt_labels, gt_valid, gt_masks=None,
                generator: Optional[torch.Generator] = None,
-               noise: Optional[Dict[str, torch.Tensor]] = None):
+               noise: Optional[Dict[str, torch.Tensor]] = None,
+               sync_group=None):
         return self.model.forward_train(images, gt_boxes, gt_labels, gt_valid,
                                         gt_masks=gt_masks,
-                                        generator=generator, noise=noise)
+                                        generator=generator, noise=noise,
+                                        sync_group=sync_group)
 
     def backward(self, losses: Dict[str, torch.Tensor]) -> None:
         for p in self.opt.params.values():

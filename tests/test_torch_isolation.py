@@ -46,6 +46,9 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_roi_align_ab.py")
     yield os.path.join(ROOT, "tools", "torch_effdet_f32_noise.py")
+    yield os.path.join(ROOT, "tools", "torch_dp_step_ab.py")
+    yield os.path.join(ROOT, "tools", "torch_runner_fanout.py")
+    yield os.path.join(ROOT, "tools", "torch_dp_cards.py")
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():
@@ -115,7 +118,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "compute_dtype='float32', device='cpu')\n"
         "f = ex([np.zeros((40, 20, 3), np.uint8)])\n"
         "assert f.shape == (1, 512) and np.isfinite(f).all(), f\n"
-        "for name in ('se_resnet50', 'squeezenet1_1'):\n"
+        "for name in ('se_resnet50', 'squeezenet1_1', 'shufflenet', "
+        "'nasnetamobile'):\n"
         "    build_reid_model(name)\n"
         "cfg = DetectorConfig(num_class=16, resnet_depth=18, "
         "short_edge_size=32, max_size=64, rpn_test_post_nms_topk=16, "
@@ -219,14 +223,20 @@ def test_no_source_imports_or_reads_the_jax_package():
             *(f"object_detection_tracking_tpu_torch/models/reid/{m}.py"
               for m in ("senet_reid", "ibn_reid", "mobilenetv2",
                         "densenet_reid", "squeezenet_reid",
-                        "shufflenet_reid"))
+                        "shufflenet_reid", "shufflenetv1_reid", "pcb_reid",
+                        "resnetmid_reid", "mlfn_reid", "hacnn_reid",
+                        "mudeep_reid", "xception_reid", "inceptionv4_reid",
+                        "inceptionresnetv2_reid", "nasnet_reid")),
+            "object_detection_tracking_tpu_torch/parallel/__init__.py",
+            "object_detection_tracking_tpu_torch/parallel/mesh.py",
             } <= scanned
 
 
 def test_training_runs_with_jax_and_the_jax_package_blocked():
     """The train CLI imports, and small CPU forward_train and backward
-    passes of Faster R-CNN (with masks) and EfficientDet run, and an
-    EfficientDet's BN statistics calibrate, with nothing of JAX
+    passes of Faster R-CNN (with masks) and EfficientDet run, an
+    EfficientDet's BN statistics calibrate, and a one-rank gloo
+    data-parallel step runs (parallel/mesh.py), with nothing of JAX
     importable."""
     code = (
         "import sys\n"
@@ -271,6 +281,25 @@ def test_training_runs_with_jax_and_the_jax_package_blocked():
         "assert e.class_net.predict.pw.weight.grad.abs().sum() > 0\n"
         "e.calibrate_bn([img.numpy()])\n"
         "assert not torch.all(e.backbone.stem.bn.variance == 1)\n"
+        "import os, socket\n"
+        "from object_detection_tracking_tpu_torch.config import "
+        "TrainConfig\n"
+        "from object_detection_tracking_tpu_torch.parallel import mesh\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0))\n"
+        "os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT="
+        "str(s.getsockname()[1]), RANK='0', WORLD_SIZE='1')\n"
+        "s.close()\n"
+        "assert mesh.launched_by_torchrun()\n"
+        "mesh.init_distributed('cpu', timeout_s=60)\n"
+        "_, step = mesh.make_sharded_train_step(m, TrainConfig(), "
+        "mesh.make_mesh(timeout_s=60))\n"
+        "img = torch.from_numpy(rng.randint(0, 255, (2, 48, 64, 3))"
+        ".astype(np.uint8))\n"
+        "losses = step(img, gt, torch.ones(2, 1, dtype=torch.int32), "
+        "torch.ones(2, 1, dtype=torch.bool), torch.ones(2, 1, 28, 28), "
+        "generator=torch.Generator().manual_seed(0))\n"
+        "assert torch.isfinite(losses['total_loss']), losses\n"
+        "torch.distributed.destroy_process_group()\n"
         f"bad = [k for k, v in sys.modules.items() if v is not None and "
         f"(k == 'jax' or k.startswith('jax.') or k == '{JAX_PKG}' or "
         f"k.startswith('{JAX_PKG}.'))]\n"

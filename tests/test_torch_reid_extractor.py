@@ -132,15 +132,14 @@ def test_distance_matrix_matches_jax(metric):
 
 
 def test_registry_names(checkpoints, monkeypatch):
-    """Every JAX registry name is ported or raises naming ROADMAP A11b; an
-    unknown name raises ValueError as in JAX; a checkpoint is required; a
-    CUDA request without a GPU raises."""
-    assert set(tx.MODELS) | set(tx.NOT_PORTED) == set(jx.FORWARDS)
-    assert not set(tx.MODELS) & set(tx.NOT_PORTED)
+    """The port's registry is JAX's, name for name, and takes every name;
+    an unknown name raises ValueError as in JAX; a checkpoint is required;
+    a CUDA request without a GPU raises."""
+    assert set(tx.MODELS) == set(jx.FORWARDS)
+    assert not hasattr(tx, "NOT_PORTED")
     assert tx.FIXED_IMAGE_SIZE == jx.FIXED_IMAGE_SIZE
-    for name in tx.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="A11b"):
-            tx.FeatureExtractor(name, "x.pth", device="cpu")
+    for name in jx.FORWARDS:
+        tx.check_reid_model(name)
     for mod in (tx, jx):
         with pytest.raises(ValueError, match="unknown reid model"):
             mod.FeatureExtractor("osnet_x9", "x.pth")

@@ -350,22 +350,38 @@ def reid_net(name, seed=0, size=(64, 32), batch=4):
     vary across inputs by ~1e-2 of their size: every crop would look
     alike. The fc heads' BN1d keeps unit statistics: measured on a few
     alike samples, its variances are ~1e-5 and it would blow float32
-    rounding up ~100x."""
+    rounding up ~100x. So does every BatchNorm2d that sees 1x1 maps (MLFN's
+    factor-selection gates and projections, HA-CNN's channel attention):
+    measured there, MLFN's smallest variance is 4e-5 and float32 forwards
+    of both packages land 0.6-2.3% of the output's magnitude from a
+    float64 one. Inception-v4, a deep stack of BN-ReLU convs without a
+    residual, gets every BatchNorm2d's beta 1 before the measure: with
+    beta 0 and measured statistics the random net is chaotic (its float32
+    forward 3e-5 of the output's magnitude from a float64 one at 96x80
+    and 7e-4 at 256x128, bf16 against float32 a row cosine of 0.75 there),
+    and unit statistics make its features barely depend on the input (a
+    cosine of 0.998 between two inputs' features); with beta 1, 1.3e-6
+    and 5e-6 from float64, bf16 cosine 0.998 and cosine 0.88 between two
+    inputs at 256x128."""
     import torch
     from torch import nn
 
     from object_detection_tracking_tpu_torch.models.reid import (
-        ibn_reid, mobilenetv2, osnet, resnet_reid, senet_reid)
+        ibn_reid, inceptionv4_reid, mlfn_reid, mobilenetv2, osnet,
+        resnet_reid, senet_reid)
     from object_detection_tracking_tpu_torch.models.reid.extractor import \
         build_reid_model
     torch.manual_seed(seed)
     net = build_reid_model(name)
+    plain = isinstance(net, inceptionv4_reid.InceptionV4ReID)
     bns = []
     with torch.no_grad():
         for m in net.modules():
             if isinstance(m, (resnet_reid.Bottleneck, senet_reid.SEBottleneck,
                               ibn_reid.IBNBottleneck)):
                 m.bn3.weight.mul_(0.2)
+            elif isinstance(m, mlfn_reid.MLFNBlock):
+                m.fm_bn3.weight.mul_(0.2)
             elif isinstance(m, mobilenetv2.MobileBottleneck) \
                     and m.use_residual:
                 m.conv3[1].weight.mul_(0.2)
@@ -377,6 +393,8 @@ def reid_net(name, seed=0, size=(64, 32), batch=4):
             if isinstance(m, nn.BatchNorm2d):
                 m.momentum = None     # running stats = this batch's
                 m.reset_running_stats()
+                if plain:
+                    m.bias.fill_(1.0)
                 bns.append(m)
         x = torch.randn(batch, 3, *size,
                         generator=torch.Generator().manual_seed(seed + 1))
@@ -384,7 +402,15 @@ def reid_net(name, seed=0, size=(64, 32), batch=4):
         for m in net.modules():
             if isinstance(m, nn.BatchNorm1d):
                 m.eval()
+        pointwise = set()
+        hooks = [m.register_forward_hook(
+            lambda m, inp, out: pointwise.add(m)
+            if inp[0].shape[2:].numel() == 1 else None) for m in bns]
         net(x)
+        for h in hooks:
+            h.remove()
     for m in bns:
         m.momentum = 0.1
+        if m in pointwise:
+            m.reset_running_stats()
     return net.eval()
