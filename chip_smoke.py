@@ -22,7 +22,19 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                d6's (1280x1280, C=384), B=8, N=100, with zero boxes on
                level 0 and boxes on P7's edge; median CUDA-event times
                of the wrapper's call, the kernel's own device time
-               (torch.profiler) and its share of the bound
+               (torch.profiler) and its share of the bound; then the
+               ROIAlign box-gradient kernel (B1e) against autograd of the
+               plain version at synthetic shapes that reach each of its
+               paths (B1E_CASES on the SO training launch's 1088x1920
+               pyramid, B=2: 2000 dense p2 boxes with sub-pixel sample
+               spacing, more than one wave of resident blocks; mixed sizes
+               with zero-area, zero-width, wholly out-of-map and
+               last-row/column boxes at P=7, 14 and 32; repeated boxes, as
+               the SO classes repeat the class-agnostic boxes; C=40, a
+               vector path with lanes left idle; C=36, C=30 and levels
+               off 16 bytes for the scalar paths), bf16 and float32
+               features, within 1e-4 of max |plain|, two launches bitwise
+               equal, timed beside its bound
   4. main path R50-FPN partial-COCO at full width (random weights from seed
                0), bf16: synthetic 1280x720 frames -> VideoEnqueuer ->
                DetectionRunner -> Deep SORT on Person and Vehicle -> MOT
@@ -387,6 +399,32 @@ REID_PLAIN = ("inceptionv4",)
 # fixed order; tests/test_torch_kernels_cuda.py)
 SO_FORWARDS, SO_TRAIN_STEPS = 3, 4
 B1E_REL = 1e-4
+# B1e's synthetic cases (phase 3) on the SO training launch's padded image
+# (B=TRAIN_BATCH): (label, kind of boxes, boxes per image, pool, channels,
+# levels off 16 bytes); box_grad_case says what each kind holds
+B1E_H, B1E_W = 1088, 1920
+B1E_CASES = (
+    ("dense p2 2x1000 P=7 C=256", "dense", 1000, 7, 256, False),
+    ("mixed 2x300 P=7 C=256", "mixed", 300, 7, 256, False),
+    ("mixed 2x64 P=14 C=256", "mixed", 64, 14, 256, False),
+    ("mixed 2x16 P=32 C=256", "mixed", 16, 32, 256, False),
+    ("repeat 2x300 P=7 C=256", "repeat", 300, 7, 256, False),
+    ("mixed 2x100 P=7 C=40", "mixed", 100, 7, 40, False),
+    ("mixed 2x100 P=7 C=36", "mixed", 100, 7, 36, False),
+    ("mixed 2x100 P=7 C=30", "mixed", 100, 7, 30, False),
+    ("mixed 2x100 P=7 C=256 off16", "mixed", 100, 7, 256, True),
+)
+# the image boxes that open every "mixed" case: a zero box (no sample in
+# the map), zero width, wholly outside the image on either side, the whole
+# image (p5), a corner, and zero-area and zero-height/width boxes whose
+# samples lie exactly on p2's last row and column (iy = 271, ix = 479)
+B1E_EDGE_BOXES = (
+    (0.0, 0.0, 0.0, 0.0), (50.0, 20.0, 50.0, 90.0),
+    (2000.0, 1200.0, 2100.0, 1300.0), (-300.0, -200.0, -10.0, -20.0),
+    (0.0, 0.0, 1920.0, 1088.0), (1700.0, 900.0, 1920.0, 1088.0),
+    (1918.0, 1086.0, 1918.0, 1086.0), (20.0, 1086.0, 200.0, 1086.0),
+    (1918.0, 10.0, 1918.0, 150.0),
+)
 # reference-checkpoint phase (18): --log_time_and_gpu's sampling period
 # there (the CLI's 5 s would see no sample in a drive of a few seconds),
 # and the frames that phase decodes with PyAV where av imports
@@ -459,6 +497,65 @@ def roi_case(gen, n, dtype):
     valid = torch.rand(BATCH, n, device="cuda", generator=gen) > 0.3
     valid[:, :6] = True
     return feats, boxes, valid
+
+
+def box_grad_case(gen, kind, n, c, dtype, off16=False, device="cuda"):
+    """B1e's synthetic inputs on the 1088x1920 pyramid (p2..p5, B=
+    TRAIN_BATCH, unit-normal features and grad_out): "dense", n boxes an
+    image of 8-40 px a side (aspect 1/1.4..1.4) inside the image, all on p2
+    at a sample spacing under 1 px, so neighbouring bins share most taps;
+    "mixed", B1E_EDGE_BOXES then boxes of 16-600 px a side (aspect 1/3..3)
+    centred anywhere in the image or 10% around it; "repeat", boxes of
+    that size repeated, as the SO heads' classes repeat the class-agnostic
+    boxes: n // 3 boxes three times each in a random order, nine copies of
+    the first. ``off16``: each level
+    a view one element past 16 bytes. Returns (features, boxes [B, n, 4],
+    grad_out [B, n, P, P, C] for P from the caller: a function of P)."""
+    import torch
+    b = TRAIN_BATCH
+    feats = [torch.randn(b, B1E_H >> i, B1E_W >> i, c, device=device,
+                         generator=gen).to(dtype) for i in range(2, 6)]
+    if off16:
+        views = []
+        for f in feats:
+            buf = torch.empty(f.numel() + 1, dtype=dtype, device=device)
+            view = buf[1:].view(f.shape)
+            view.copy_(f)
+            views.append(view)
+        feats = views
+
+    def uniform(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, device=device,
+                                           generator=gen)
+    if kind == "dense":
+        side = torch.exp(uniform(math.log(8.0), math.log(40.0), (b, n)))
+        ar = torch.exp(uniform(-math.log(1.4), math.log(1.4), (b, n)))
+        bw, bh = side * ar.sqrt(), side / ar.sqrt()
+        x0 = uniform(0.0, 1.0, (b, n)) * (B1E_W - bw)
+        y0 = uniform(0.0, 1.0, (b, n)) * (B1E_H - bh)
+    else:
+        side = torch.exp(uniform(math.log(16.0), math.log(600.0), (b, n)))
+        ar = torch.exp(uniform(-math.log(3.0), math.log(3.0), (b, n)))
+        bw, bh = side * ar.sqrt(), side / ar.sqrt()
+        x0 = uniform(-0.1 * B1E_W, 1.1 * B1E_W, (b, n)) - bw / 2
+        y0 = uniform(-0.1 * B1E_H, 1.1 * B1E_H, (b, n)) - bh / 2
+    boxes = torch.stack([x0, y0, x0 + bw, y0 + bh], -1)
+    if kind == "mixed":
+        edge = torch.tensor(B1E_EDGE_BOXES, device=device)
+        boxes[:, :len(edge)] = edge[:n]
+    elif kind == "repeat":
+        # each image's boxes drawn from n // 3 of them, each three times in
+        # a random order, the first nine one box
+        pick = torch.arange(n, device=device) % (n // 3)
+        pick = pick[torch.randperm(n, device=device, generator=gen)]
+        pick[:9] = 0
+        boxes = boxes[:, pick]
+    boxes = boxes.contiguous()
+
+    def grad_out(pool):
+        return torch.randn(b, n, pool, pool, c, device=device,
+                           generator=gen)
+    return feats, boxes, grad_out
 
 
 def phase_kernels():
@@ -3734,8 +3831,8 @@ def roi_box_grad_bound_ms(feats, boxes, strides, pool, levels):
 
 def check_roi_box_grad(label, feats, boxes, strides, pool, grad_out, levels,
                        phase="so-train"):
-    """B1e on one training launch's own inputs against autograd of the
-    plain version with respect to the boxes
+    """B1e on one training launch's own inputs (or phase 3's synthetic
+    ones) against autograd of the plain version with respect to the boxes
     (multilevel_roi_align_box_vjp), with the path's features and with
     them in float32: within B1E_REL of max |plain|; two launches agree bit
     for bit. Times: the wrapper's CUDA-event time and the plain version's
@@ -3781,7 +3878,9 @@ def check_roi_box_grad(label, feats, boxes, strides, pool, grad_out, levels,
     entry["bound_ms"], entry["bound_by"] = roi_box_grad_bound_ms(
         feats, boxes, strides, pool, levels)
     entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
-    log(phase, f"roi_align_box_grad (B1e) on the step's own inputs, {label}:"
+    where = ("the step's own inputs" if phase == "so-train"
+             else "synthetic inputs")
+    log(phase, f"roi_align_box_grad (B1e) on {where}, {label}:"
         f" max |kernel - plain| {entry['err']:.3g} ({entry['share']:.3g} of "
         f"max |plain|, bound {B1E_REL}; {', '.join(r for r, _ in runs)} "
         f"features); two launches bitwise equal; kernel {entry['ms']:.4f} "
@@ -3790,6 +3889,28 @@ def check_roi_box_grad(label, feats, boxes, strides, pool, grad_out, levels,
         f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
         f"{entry['bound_share']:.1%} of it")
     return entry
+
+
+def phase_box_grad_kernels():
+    """Phase 3, B1e: the box-gradient kernel at B1E_CASES through
+    check_roi_box_grad (bf16 features and the same in float32, within
+    B1E_REL of max |plain|, two launches bitwise equal, only its kernel in
+    its profile; wrapper, plain and device times, bound). Returns {label:
+    entry}."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results = {}
+    for label, kind, n, pool, c, off16 in B1E_CASES:
+        feats, boxes, grad_out = box_grad_case(gen, kind, n, c,
+                                               torch.bfloat16, off16)
+        levels = RA.fpn_map_rois_to_levels(boxes)
+        results[label] = check_roi_box_grad(label, feats, boxes, STRIDES,
+                                            pool, grad_out(pool), levels,
+                                            phase="kernels")
+        del feats, boxes
+    torch.cuda.empty_cache()
+    return results
 
 
 def so_launch_inputs(model, x):
@@ -4607,9 +4728,10 @@ def effdet_kernel_row(name, effdet, kres):
                   "P7-edge and zero boxes), f32 and bf16"}
 
 
-def so_box_grad_row(so_train):
+def so_box_grad_row(so_train, synthetic):
     """The kernels line's row of B1e: the SO pooling's launches of phase
-    17's train steps, redone and timed on one step's own inputs."""
+    17's train steps, redone and timed on one step's own inputs; phase 3's
+    synthetic cases beside them."""
     (label, entry), = so_train["box_grad"].items()
     return {
         "name": "roi_align_box_grad", "route": "cuda",
@@ -4621,13 +4743,17 @@ def so_box_grad_row(so_train):
         "device_ms": entry["device_ms"], "plain_ms": entry["plain_ms"],
         "bound_ms": entry["bound_ms"], "bound_share": entry["bound_share"],
         "bound_by": entry["bound_by"], "library_ms": None,
-        "per_launch": so_train["box_grad"],
+        "per_launch": so_train["box_grad"], "synthetic": synthetic,
         "shapes": f"phase 17's train steps (main.py train "
                   f"--use_small_object_head, B=2, 1088x1920 pyramid, "
                   f"C=256, bf16 features, float32 grad_out): {label}; "
                   f"launches over {SO_TRAIN_STEPS} steps; the rest on one "
                   f"step's own inputs (JAX has no kernel: XLA's autodiff "
-                  f"of the exact gather gives the box gradient)"}
+                  f"of the exact gather gives the box gradient); "
+                  f"synthetic: phase 3's B1E_CASES (B=2, 1088x1920 "
+                  f"pyramid), each timed on bf16 features; max_abs_err "
+                  f"the step's launch alone, the synthetic cases' under "
+                  f"synthetic"}
 
 
 def main():
@@ -4648,6 +4774,7 @@ def main():
 
     sass = build_kernels(native)
     kres = phase_kernels()
+    box_grad_synthetic = phase_box_grad_kernels()
     sres = phase_stage()
     kept = tempfile.TemporaryDirectory()    # phase 7's MOT files, for 15
     with tempfile.TemporaryDirectory() as tmp:
@@ -4866,7 +4993,7 @@ def main():
                    "per_conv_floor_ms, cudnn_stack_ms and by_kind summed "
                    "over the three"}
         ] + [effdet_kernel_row(name, effdet, kres) for name in ("d0", "d6")]
-        + [so_box_grad_row(so_train)],
+        + [so_box_grad_row(so_train, box_grad_synthetic)],
         "effdet_path": {k: v for k, v in effdet.items()
                         if k not in ("roi", "d6")},
         "effdet_d6": {k: v for k, v in effdet["d6"].items() if k != "roi"},

@@ -1074,12 +1074,12 @@ extern "C" int roi_align_backward(
 // ---------------------------------------------------------------------------
 // B1e: the gradient of the forward above with respect to the boxes.
 //
-// The JAX package has no Pallas kernel for it either: the small-object
-// heads' loss (object_detection_tracking_tpu/models/faster_rcnn.py
-// `_so_train_loss` :823) pools boxes decoded from the box head's output
-// through the exact gather (ops/roi_align.py:136-181), and XLA's autodiff
-// takes the gradient back into those boxes. Its spec here is autograd of
-// the plain `multilevel_roi_align` with respect to the boxes
+// The JAX package has no Pallas kernel for it either, so it replaces none:
+// the small-object heads' loss (object_detection_tracking_tpu/models/
+// faster_rcnn.py `_so_train_loss` :823) pools boxes decoded from the box
+// head's output through the exact gather (ops/roi_align.py:136-181), and
+// XLA's autodiff takes the gradient back into those boxes. Its spec here is
+// autograd of the plain `multilevel_roi_align` with respect to the boxes
 // (ops/roi_align.py `multilevel_roi_align_box_vjp`).
 //
 // The function. Sample (sy, sx) of a ROI's 2P x 2P grid sits at
@@ -1099,29 +1099,57 @@ extern "C" int roi_align_backward(
 // outside the map adds nothing; one on the last row (iy = h - 1) has both
 // neighbours on that row, so its bot - top is 0, as in the plain version.
 //
-// The design. One block per ROI, as in the forward, whose sample placement
-// (`lane_samples`, `bin_taps`) and 16 neighbour loads per bin it reuses:
-// the warps stride over the P x P bins; a lane owns kVec channels and reads
-// their grad_out with the neighbours, and adds its share of the bin's four
-// samples' two sums in float32 registers; the warp reduces the eight sums by
-// shuffles, and lane 0 adds them into the warp's own row of shared sample
-// sums. After a barrier warp 0 adds the rows in warp order, takes the two
-// moments per axis and writes the ROI's 4 floats. No atomics, so two
-// launches agree bit for bit. Bytes bound it: grad_out read once (float32)
-// and the feature pixels the taps reach, as for the forward; what is
-// written is 16 bytes a ROI.
+// What bounds it on the H100: bytes. It must read grad_out's rows of the
+// bins with an in-map sample once (float32; 30 MB at the small-object
+// training launch, B=2 N=300 P=7 C=256) and the feature pixels its taps
+// reach (bf16), and write 16 bytes a ROI; its float32 work, 16 operations
+// a channel per in-map sample, takes less than half of that time at the
+// float32 peak. What a gather kernel moves is more: every bin reads its 16
+// taps' pixel rows (8 KB at C = 256 bf16) through L1 from L2, ~240 MB at
+// that launch, and waits on its grad_out row from device memory.
+//
+// The design (PERF.md has the variants tried and their times):
+//   * one block of kBoxWarps (8) warps per ROI, kBoxMinBlocks (2) blocks
+//     an SM, its warps striding over the P x P bins, so the bins in flight
+//     in a block are neighbours that share taps in L1; the forward's sample
+//     placement (`lane_samples`, `bin_taps`) and 16-byte gathers, all 16
+//     of a bin in flight together; a bin whose samples all lie outside the
+//     map (a warp ballot of the samples' in-map bits) reads nothing;
+//   * dot products first: a lane forms the bin's 16 tap dot products
+//     D = sum over its channels of g * v (an unpack and a multiply-add a
+//     channel and tap) and only then mixes them with the bin's scalar
+//     bilinear weights, the same for every lane: bot - top =
+//     (1 - fx)(D10 - D00) + fx (D11 - D01), likewise along x;
+//   * moments, not per-sample sums: of the per-sample derivatives the box
+//     needs only G and G' per axis, linear in them, so a lane adds its
+//     share of each bin straight into four registers; the warp reduces
+//     them by shuffles once per ROI and the block adds its warps' rows in
+//     warp order: nothing is reduced per bin, no atomics, a fixed order,
+//     two launches agree bit for bit. A sample on row h - 1 (column w - 1)
+//     reads the same pixel for both neighbours through the same sequence
+//     of operations, so its D10 - D00 is exactly 0;
+//   * grad_out is read once, with the bin's taps, by streaming loads (.cs),
+//     so it does not push the taps' pixels out of L1 and L2.
+// It stays well above the bound: each bin waits on its gathers from L2
+// and its grad_out row from device memory, and the 128 registers of two
+// blocks an SM leave no room to have the next bin's in flight (PERF.md).
 
 namespace {
 
-// kVec float32 values of grad_out at p (16-byte loads on the vector path).
+constexpr int kBoxWarps = 8;
+constexpr int kBoxThreads = 32 * kBoxWarps;
+constexpr int kBoxMinBlocks = 2;   // an SM: 128 registers a thread
+
+// kVec float32 values of grad_out at p, read once (streaming loads;
+// 16 bytes at a time on the vector path).
 template <int kVec>
 __device__ __forceinline__ void load_grad(const float* p, float (&g)[kVec]) {
   if constexpr (kVec == 1) {
-    g[0] = __ldg(p);
+    g[0] = __ldcs(p);
   } else {
 #pragma unroll
     for (int i = 0; i < kVec; i += 4) {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+      const float4 q = __ldcs(reinterpret_cast<const float4*>(p + i));
       g[i] = q.x; g[i + 1] = q.y; g[i + 2] = q.z; g[i + 3] = q.w;
     }
   }
@@ -1133,21 +1161,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Tap q = (ky, kx, ry, rx) of bin `t`: neighbour (ry, rx) of sample
+// (ky, kx), as a pixel index on the level (valid where the sample is in
+// the map).
+__device__ __forceinline__ int tap_pixel(const BinTaps& t, int q) {
+  const int ky = q >> 3, kx = (q >> 2) & 1, ry = (q >> 1) & 1, rx = q & 1;
+  return t.row[ky][ry] + t.col[kx][rx];
+}
+
+__device__ __forceinline__ bool tap_in_map(const BinTaps& t, int q) {
+  return t.yin[q >> 3] && t.xin[(q >> 2) & 1];
+}
+
+// The bits of the samples of one axis that lie in the map (lane i holds
+// samples i and i + 32; their lower neighbour is -1 outside).
+__device__ __forceinline__ unsigned long long in_map_bits(const int (&lo)[2]) {
+  return (unsigned long long)__ballot_sync(kFullMask, lo[0] >= 0) |
+         (unsigned long long)__ballot_sync(kFullMask, lo[1] >= 0) << 32;
+}
+
+// Whether bin `bin` of a pool x pool grid has a sample in the map.
+__device__ __forceinline__ bool bin_in_map(int bin, int pool,
+                                           unsigned long long y_in,
+                                           unsigned long long x_in) {
+  const int py = bin / pool;
+  const int px = bin - py * pool;
+  return ((y_in >> (2 * py)) & 3ull) != 0 &&
+         ((x_in >> (2 * px)) & 3ull) != 0;
+}
+
 template <typename T, int kVec>
-__global__ void __launch_bounds__(kThreads, 2) roi_align_box_grad_kernel(
-    Levels lv, const float* __restrict__ boxes,
-    const int* __restrict__ levels, const float* __restrict__ grad_out,
-    float* __restrict__ out, int rois_per_image, int c, int pool) {
+__global__ void __launch_bounds__(kBoxThreads, kBoxMinBlocks)
+    roi_align_box_grad_kernel(Levels lv, const float* __restrict__ boxes,
+                              const int* __restrict__ levels,
+                              const float* __restrict__ grad_out,
+                              float* __restrict__ out, int rois_per_image,
+                              int c, int pool) {
   using Ch = Chunk<T, kVec>;
-  __shared__ float sum_y[kWarps][64];   // dL/diy by sample, one row a warp
-  __shared__ float sum_x[kWarps][64];
+  __shared__ float part[kBoxWarps][4];   // each warp's G_y, G'_y, G_x, G'_x
   const int roi = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int size2 = 2 * pool;
-  sum_y[warp][lane] = sum_y[warp][lane + 32] = 0.f;
-  sum_x[warp][lane] = sum_x[warp][lane + 32] = 0.f;
-  __syncwarp();
+  const int bins = pool * pool;
 
   const int l = min(max(levels[roi], 0), lv.count - 1);
   const int h = lv.h[l];
@@ -1155,101 +1211,89 @@ __global__ void __launch_bounds__(kThreads, 2) roi_align_box_grad_kernel(
   const float s = (float)lv.stride[l];
   const LaneSamples ls = lane_samples(boxes + (size_t)roi * 4, s, h, w,
                                       size2, lane);
+  const unsigned long long y_in = in_map_bits(ls.ys_lo);
+  const unsigned long long x_in = in_map_bits(ls.xs_lo);
   const T* feat = static_cast<const T*>(lv.ptr[l]) +
                   (size_t)(roi / rois_per_image) * h * w * c;
-  const float* g_roi = grad_out + (size_t)roi * pool * pool * c;
-  for (int bin = warp; bin < pool * pool; bin += kWarps) {   // warp-uniform
+  const float* g_lane = grad_out + (size_t)roi * bins * c + lane * kVec;
+
+  // this lane's share of G_y, G'_y, G_x, G'_x over its warp's bins
+  float m[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int bin = warp; bin < bins; bin += kBoxWarps) {   // warp-uniform
+    if (!bin_in_map(bin, pool, y_in, x_in)) continue;
     const int py = bin / pool;
     const int px = bin - py * pool;
     const BinTaps t = bin_taps(ls, py, px, h, w);
-    // the bin's samples (ky, kx): sum over the lane's channels of
-    // g * (bot - top) and of g * d/dix (with the 1/4 folded in t.wy)
-    float ay[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    float ax[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    for (int c0 = lane * kVec; c0 < c; c0 += 32 * kVec) {
+    // tap q's dot product over the lane's channels: sum of g * v
+    float d[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) d[q] = 0.f;
+    for (int c0 = 0; lane * kVec + c0 < c; c0 += 32 * kVec) {
       typename Ch::Raw raw[16];
 #pragma unroll
       for (int q = 0; q < 16; ++q) {
-        const int ky = q >> 3, kx = (q >> 2) & 1, ry = (q >> 1) & 1,
-                  rx = q & 1;
-        raw[q] = (t.yin[ky] && t.xin[kx])
-                     ? Ch::load(feat + (size_t)(t.row[ky][ry] + t.col[kx][rx])
-                                * c + c0)
+        raw[q] = tap_in_map(t, q)
+                     ? Ch::load(feat + (size_t)tap_pixel(t, q) * c +
+                                lane * kVec + c0)
                      : typename Ch::Raw{};
       }
       float g[kVec];
-      load_grad<kVec>(g_roi + (size_t)bin * c + c0, g);
+      load_grad<kVec>(g_lane + (size_t)bin * c + c0, g);
 #pragma unroll
-      for (int ky = 0; ky < 2; ++ky) {
+      for (int q = 0; q < 16; ++q) {
 #pragma unroll
-        for (int kx = 0; kx < 2; ++kx) {
-          const int q = ky * 8 + kx * 4;   // corner (0, 0) of the sample
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            const float v00 = Ch::get(raw[q], j);
-            const float v01 = Ch::get(raw[q + 1], j);
-            const float v10 = Ch::get(raw[q + 2], j);
-            const float v11 = Ch::get(raw[q + 3], j);
-            const float top = v00 * t.wx[kx][0] + v01 * t.wx[kx][1];
-            const float bot = v10 * t.wx[kx][0] + v11 * t.wx[kx][1];
-            ay[ky][kx] = fmaf(g[j], bot - top, ay[ky][kx]);
-            const float dx = (v01 - v00) * t.wy[ky][0] +
-                             (v11 - v10) * t.wy[ky][1];
-            ax[ky][kx] = fmaf(g[j], dx, ax[ky][kx]);
-          }
+        for (int j = 0; j < kVec; ++j) {
+          d[q] = fmaf(g[j], Ch::get(raw[q], j), d[q]);
         }
       }
     }
+    // the bin's in-map samples: dy(ky) = sum over kx of bot - top, dx(kx) =
+    // sum over ky of the x-derivative (t.wy holds the 2x2 mean's 1/4)
+    float dy[2] = {0.f, 0.f};
+    float dx[2] = {0.f, 0.f};
 #pragma unroll
     for (int ky = 0; ky < 2; ++ky) {
 #pragma unroll
       for (int kx = 0; kx < 2; ++kx) {
-        ay[ky][kx] = warp_sum(ay[ky][kx]);
-        ax[ky][kx] = warp_sum(ax[ky][kx]);
+        if (t.yin[ky] && t.xin[kx]) {
+          const float* e = d + 8 * ky + 4 * kx;   // e[2 ry + rx]
+          const float top = fmaf(e[1], t.wx[kx][1], e[0] * t.wx[kx][0]);
+          const float bot = fmaf(e[3], t.wx[kx][1], e[2] * t.wx[kx][0]);
+          dy[ky] += bot - top;
+          dx[kx] += fmaf(e[3] - e[2], t.wy[ky][1],
+                         (e[1] - e[0]) * t.wy[ky][0]);
+        }
       }
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        sum_y[warp][2 * py + k] += 0.25f * (ay[k][0] + ay[k][1]);
-        sum_x[warp][2 * px + k] += ax[0][k] + ax[1][k];
-      }
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  if (warp == 0) {
-    // per axis, G = sum_s dL/di(s) and G' = sum_s dL/di(s) (s + 0.5); lane
-    // i holds samples i and i + 32
-    float m[4] = {0.f, 0.f, 0.f, 0.f};   // G_y, G'_y, G_x, G'_x
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const int i = lane + 32 * k;
-      if (i < size2) {
-        float gy = 0.f, gx = 0.f;
-        for (int q = 0; q < kWarps; ++q) {
-          gy += sum_y[q][i];
-          gx += sum_x[q][i];
-        }
-        const float at = (float)i + 0.5f;
-        m[0] += gy;
-        m[1] = fmaf(gy, at, m[1]);
-        m[2] += gx;
-        m[3] = fmaf(gx, at, m[3]);
-      }
+      const float ay = 0.25f * dy[k];
+      m[0] += ay;
+      m[1] = fmaf(ay, (float)(2 * py + k) + 0.5f, m[1]);
+      m[2] += dx[k];
+      m[3] = fmaf(dx[k], (float)(2 * px + k) + 0.5f, m[3]);
     }
+  }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) m[k] = warp_sum(m[k]);
-    if (lane == 0) {
-      const float sp_y = __fdiv_rn(m[1], (float)size2);
-      const float sp_x = __fdiv_rn(m[3], (float)size2);
-      float* o = out + (size_t)roi * 4;
-      o[0] = __fdiv_rn(m[2] - sp_x, s);   // x0
-      o[1] = __fdiv_rn(m[0] - sp_y, s);   // y0
-      o[2] = __fdiv_rn(sp_x, s);          // x1
-      o[3] = __fdiv_rn(sp_y, s);          // y1
+  for (int k = 0; k < 4; ++k) m[k] = warp_sum(m[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) part[warp][k] = m[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float mom[4] = {0.f, 0.f, 0.f, 0.f};   // G_y, G'_y, G_x, G'_x
+    for (int q = 0; q < kBoxWarps; ++q) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mom[k] += part[q][k];
     }
+    const float sp_y = __fdiv_rn(mom[1], (float)size2);
+    const float sp_x = __fdiv_rn(mom[3], (float)size2);
+    float* o = out + (size_t)roi * 4;
+    o[0] = __fdiv_rn(mom[2] - sp_x, s);   // x0
+    o[1] = __fdiv_rn(mom[0] - sp_y, s);   // y0
+    o[2] = __fdiv_rn(sp_x, s);            // x1
+    o[3] = __fdiv_rn(sp_y, s);            // y1
   }
 }
 
@@ -1265,7 +1309,7 @@ cudaError_t launch_box_grad(const dim3& grid, cudaStream_t st,
                                 cudaSharedmemCarveoutMaxL1);
   });
   if (carveout != cudaSuccess) return carveout;
-  roi_align_box_grad_kernel<T, kVec><<<grid, kThreads, 0, st>>>(
+  roi_align_box_grad_kernel<T, kVec><<<grid, kBoxThreads, 0, st>>>(
       lv, b, lvl, g, o, rois_per_image, c, pool);
   return cudaGetLastError();
 }

@@ -34,6 +34,7 @@ and could move a sample across the in-image boundary.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional, Sequence
@@ -246,6 +247,21 @@ def _cuda_lib():
     return _cuda_fn("roi_align_forward", _ARGTYPES)
 
 
+def _launch_env(device: torch.device):
+    """What a ctypes launch on ``device`` needs, at the least host cost:
+    a context that makes it the runtime's current device (the CUDA runtime
+    launches there; none when it is current already) and the raw handle
+    of its current stream (without building a torch Stream object).
+    ``torch._C._cuda_getCurrentRawStream`` is private torch API (present
+    in torch 2.11, which CUDA graphs and inductor's generated code call):
+    a torch without it fails here, at the first launch."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    ctx = (contextlib.nullcontext() if index == current
+           else torch.cuda.device(index))
+    return ctx, torch._C._cuda_getCurrentRawStream(index)
+
+
 def _check_cuda_args(features, boxes, strides, output_size, max_levels):
     """The kernels' shared argument checks; returns (b, n, c, dtype)."""
     if boxes.device.type != "cuda":
@@ -337,14 +353,14 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
-    with torch.cuda.device(boxes.device):   # the runtime's launch device
+    ctx, stream = _launch_env(boxes.device)
+    with ctx:
         err = _cuda_lib()(
             *[f.data_ptr() for f in features], *[None] * pad, *dims,
             *[0, 0] * pad, *[int(s) for s in strides], *[1] * pad,
             len(features), boxes.data_ptr(), lvl.data_ptr(),
             valid.data_ptr() if valid is not None else None, out.data_ptr(),
-            b, n, c, output_size, int(dtype == torch.bfloat16),
-            torch.cuda.current_stream(boxes.device).cuda_stream)
+            b, n, c, output_size, int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: CUDA error {err}")
     multilevel_roi_align_cuda.launches += 1
@@ -391,12 +407,13 @@ def multilevel_roi_align_backward_cuda(features: Sequence[torch.Tensor],
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
-    with torch.cuda.device(boxes.device):
+    ctx, stream = _launch_env(boxes.device)
+    with ctx:
         err = _cuda_fn("roi_align_backward", _BWD_ARGTYPES)(
             out.data_ptr(), scratch.data_ptr(), scratch.numel(), *dims,
             *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
             grad_out.data_ptr(), b, n, c, p, int(dtype == torch.bfloat16),
-            torch.cuda.current_stream(boxes.device).cuda_stream)
+            stream)
     if err != 0:
         raise RuntimeError(
             f"roi_align backward kernel launch failed: CUDA error {err}")
@@ -437,13 +454,13 @@ def multilevel_roi_align_box_grad_cuda(features: Sequence[torch.Tensor],
     dims = []
     for f in features:
         dims += [f.shape[1], f.shape[2]]
-    with torch.cuda.device(boxes.device):
+    ctx, stream = _launch_env(boxes.device)
+    with ctx:
         err = _cuda_fn("roi_align_box_grad", _BOX_ARGTYPES)(
             *[f.data_ptr() for f in features], *dims,
             *[int(s) for s in strides], boxes.data_ptr(), lvl.data_ptr(),
             grad_out.data_ptr(), out.data_ptr(), b, n, c, p,
-            int(dtype == torch.bfloat16),
-            torch.cuda.current_stream(boxes.device).cuda_stream)
+            int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(
             f"roi_align box-gradient kernel launch failed: CUDA error {err}")
@@ -471,6 +488,8 @@ class _TrainableROIAlign(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         boxes, levels, *features = ctx.saved_tensors
+        # the kernels read grad_out densely: one copy for both, if any
+        grad_out = grad_out.contiguous()
         grads = multilevel_roi_align_backward_cuda(
             features, boxes, ctx.strides, ctx.output_size, grad_out,
             levels=levels)

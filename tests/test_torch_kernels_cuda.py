@@ -703,24 +703,113 @@ def box_grad_check(feats, boxes, pool, seed=5):
     (7, 10, "last_row_col"),  # samples on row H-1 and column W-1
     (14, 4, "p5_whole"),
     (7, 0, "n0"),
+    (7, 1000, "dense_p2"),    # sub-pixel spacing: bins share most taps;
+                              # 2000 ROIs, more than a wave of blocks
+    (7, 9, "out_of_map"),    # zero, zero-width, outside, last row/column
+    (32, 6, "c256"),         # the largest pool: two samples per lane
+    (7, 300, "repeated"),    # boxes repeated, as the SO classes repeat them
+    (7, 40, "c40"),          # a vector path with lanes left idle
 ])
 def test_roi_align_box_grad_kernel_matches_plain(cuda, dtype, pool, n, case):
     dt = getattr(torch, dtype)
-    if case == "p2_edge":
+    if case == "dense_p2":
+        feats = pyramid(cuda, dt, 272, 480)
+        boxes = dense_p2_boxes(n, cuda)
+        assert (RA.fpn_map_rois_to_levels(boxes) == 0).all()
+        # sample spacing on p2 (stride 4) under a pixel on both axes
+        assert ((boxes[..., 2:] - boxes[..., :2]) / (4 * 2 * pool)).max() < 1
+    elif case == "out_of_map":
+        feats = pyramid(cuda, dt, 272, 480)
+        boxes = torch.tensor(OUT_OF_MAP_BOXES, dtype=torch.float32,
+                             device=cuda)[None].repeat(
+            2, 1, 1)
+    elif case == "p2_edge":
         feats, boxes, _ = p2_edge_inputs(cuda, dt, n)
     elif case in ("p5_whole", "last_row_col"):
         boxes = tile_edge_boxes(case, cuda)
         assert boxes.shape[1] == n
         feats = pyramid(cuda, dt, *((70, 100) if case == "last_row_col"
                                     else (272, 480)))
+    elif case == "repeated":
+        feats, boxes = pyramid(cuda, dt, 272, 480), repeated_boxes(n, cuda)
     else:
-        c = {"c36": 36, "c30": 30}.get(case, 256)
+        c = {"c36": 36, "c30": 30, "c40": 40}.get(case, 256)
         feats, boxes, _ = inputs(cuda, dt, n=n, c=c)
         if case == "off16":
             feats = [off16(f) for f in feats]
     got = box_grad_check(feats, boxes, pool)
     if n:
         assert got.abs().max() > 0
+    if case == "out_of_map":
+        # no sample in the map: exact zeros; samples on p2's last row
+        # (column): exact zeros along y (x)
+        assert (got[:, [0, 2, 3, 6]] == 0).all()
+        assert (got[:, 7, 1::2] == 0).all() and (got[:, 8, ::2] == 0).all()
+        assert (got[:, 7, ::2] != 0).all() and (got[:, 8, 1::2] != 0).all()
+
+
+# image boxes on the 1088x1920 pyramid (p2 272 x 480): a zero box, zero
+# width, wholly outside the image on either side, a zero-area box whose
+# samples all lie on p2's last row and column (iy = 271, ix = 479), the
+# whole image, a corner box, zero height on the last row, zero width on
+# the last column
+OUT_OF_MAP_BOXES = [
+    [0, 0, 0, 0], [50, 20, 50, 90], [2000, 1200, 2100, 1300],
+    [-300, -200, -10, -20], [0, 0, 1920, 1088], [1700, 900, 1920, 1088],
+    [1918, 1086, 1918, 1086], [20, 1086, 200, 1086], [1918, 10, 1918, 150]]
+
+
+def repeated_boxes(n, dev, b=2, seed=15):
+    """[b, n, 4] boxes on the 1088x1920 image, each image's drawn from
+    n // 3 boxes, each three times in a random order, and the first nine
+    one box, as the small-object heads' classes repeat the class-agnostic
+    boxes."""
+    rng = np.random.RandomState(seed)
+    side = np.exp(rng.uniform(np.log(16), np.log(600), (b, n // 3)))
+    ar = np.exp(rng.uniform(-np.log(3), np.log(3), (b, n // 3)))
+    bw, bh = side * np.sqrt(ar), side / np.sqrt(ar)
+    x0 = rng.uniform(-100, 1900, (b, n // 3))
+    y0 = rng.uniform(-100, 1000, (b, n // 3))
+    base = np.stack([x0, y0, x0 + bw, y0 + bh], -1)
+    pick = np.stack([rng.permutation(np.arange(n) % (n // 3))
+                     for _ in range(b)])
+    pick[:, :9] = 0
+    boxes = np.take_along_axis(base, pick[..., None], 1)
+    return torch.from_numpy(boxes.astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roi_align_box_grad_kernel_rois_are_independent(cuda, dtype):
+    """Each ROI's gradient is computed by its own block in a fixed order,
+    whatever the other ROIs are: permuting the ROIs of each image (with
+    repeated boxes among them) permutes the result bit for bit."""
+    dt = getattr(torch, dtype)
+    feats, boxes = pyramid(cuda, dt, 272, 480), repeated_boxes(300, cuda)
+    g = torch.from_numpy(np.random.RandomState(6).randn(
+        2, 300, 7, 7, 256).astype(np.float32)).to(cuda)
+    perm = torch.from_numpy(np.random.RandomState(7).permutation(300)).to(
+        cuda)
+    got = RA.multilevel_roi_align_box_grad_cuda(feats, boxes, STRIDES, 7, g)
+    moved = RA.multilevel_roi_align_box_grad_cuda(
+        feats, boxes[:, perm].contiguous(), STRIDES, 7,
+        g[:, perm].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(moved.view(torch.int32),
+                       got[:, perm].view(torch.int32))
+
+
+def dense_p2_boxes(n, dev, b=2, seed=14):
+    """[b, n, 4] boxes of 8-40 px a side (aspect 1/1.4..1.4) inside a
+    1088x1920 image: all on p2, at a sample spacing under a pixel at P=7."""
+    rng = np.random.RandomState(seed)
+    side = np.exp(rng.uniform(np.log(8), np.log(40), (b, n)))
+    ar = np.exp(rng.uniform(-np.log(1.4), np.log(1.4), (b, n)))
+    bw, bh = side * np.sqrt(ar), side / np.sqrt(ar)
+    x0 = rng.uniform(0, 1, (b, n)) * (1920 - bw)
+    y0 = rng.uniform(0, 1, (b, n)) * (1088 - bh)
+    boxes = np.stack([x0, y0, x0 + bw, y0 + bh], -1)
+    return torch.from_numpy(boxes.astype(np.float32)).to(dev)
 
 
 @pytest.mark.cuda

@@ -6,8 +6,10 @@ spec) and against JAX's VJP of the exact gather (``_xla_multilevel``, the
 reference ``_mra_bwd`` differentiates). With a positive upstream gradient
 every tap with a nonzero weight leaves a nonzero, so each nonzero must lie
 in the footprint of an ROI of its image and level; and, taken one ROI at a
-time, the footprint must be tight. The kernel itself is held against the
-plain version on the card (tests/test_torch_kernels_cuda.py)."""
+time, the footprint must be tight. Also: the trainable ROIAlign's backward
+hands kernels B1b and B1e (the boxes' gradient) one contiguous grad_out.
+The kernels themselves are held against the plain versions on the card
+(tests/test_torch_kernels_cuda.py)."""
 
 import os
 import re
@@ -190,3 +192,42 @@ def test_tile_shape_matches_the_kernel_source():
     tile = tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
                      .group(1)) for name in ("kTileH", "kTileW"))
     assert RA.BWD_TILE == tile
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_backward_hands_both_kernels_one_contiguous_grad_out(
+        monkeypatch, layout):
+    """An upstream gradient that arrives as a strided view is made
+    contiguous once in ``_TrainableROIAlign.backward``, not once in each
+    wrapper (on the CPU both take their plain versions), and the gradients
+    are those of the plain versions."""
+    feats, boxes = features(), T(case_boxes("random", n=6))
+    seen = []
+
+    def recording(real):
+        def wrapper(features, boxes, strides, output_size, grad_out,
+                    levels=None):
+            seen.append(grad_out)
+            return real(features, boxes, strides, output_size, grad_out,
+                        levels=levels)
+        return wrapper
+    for name in ("multilevel_roi_align_backward_cuda",
+                 "multilevel_roi_align_box_grad_cuda"):
+        monkeypatch.setattr(RA, name, recording(getattr(RA, name)))
+    fs = [f.clone().requires_grad_(True) for f in feats]
+    bx = boxes.clone().requires_grad_(True)
+    out = RA.multilevel_roi_align_trainable(fs, bx, STRIDES, 7)
+    b, n, p, _, c = out.shape
+    g = T(np.random.RandomState(1).randn(b, n, c, p, p)
+          .astype(np.float32)).permute(0, 1, 3, 4, 2)
+    if layout == "contiguous":
+        g = g.contiguous()
+    assert g.is_contiguous() == (layout == "contiguous")
+    out.backward(g)
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen[0].is_contiguous() and torch.equal(seen[0], g)
+    ref_boxes = RA.multilevel_roi_align_box_vjp(feats, boxes, STRIDES, 7, g)
+    ref_feats = RA.multilevel_roi_align_vjp(feats, boxes, STRIDES, 7, g)
+    torch.testing.assert_close(bx.grad, ref_boxes, rtol=0, atol=0)
+    for f, r in zip(fs, ref_feats):
+        torch.testing.assert_close(f.grad, r, rtol=0, atol=0)

@@ -6,6 +6,7 @@ version of it, unpacked into a git-ignored directory).
 
     python3 tools/torch_roi_align_ab.py OTHER.cu [OTHER2.cu ...]
     python3 tools/torch_roi_align_ab.py --backward OTHER.cu [...]
+    python3 tools/torch_roi_align_ab.py --box-grad OTHER.cu [...]
 
 The forward (default; every source exports ``roi_align_forward``: with up
 to five levels and a level count, as the port's today, or with exactly
@@ -38,6 +39,29 @@ B1B_REL (plus one bf16 step); the wrapper's median CUDA-event time; the
 kernels' device time (torch.profiler, mean of 15 calls, sources in the
 order A B .. B A and averaged), by kernel; the bound (chip_smoke.py
 roi_bwd_bound_ms). Then the results as one JSON line.
+
+``--box-grad``: ROIAlign's box gradient (B1e, ``roi_align_box_grad``,
+the same C entry in every source) on chip_smoke.py phase 17(b)'s SO
+launch's own inputs (main.py train --use_small_object_head, R101-FPN v4
+at 1920x1080, B=2, bf16 features, float32 grad_out [2,300,7,7,256]: the
+phase itself runs, its three kernel checks replaced by a capture). A
+variant of the port's design is a throwaway copy of its source. Each
+source runs through the port's wrapper. First, at phase 3's synthetic
+cases (chip_smoke.py B1E_CASES: every path of the design, bf16 features),
+each source against the plain version as below and its device time
+(torch.profiler, 15 calls, A B .. B A). Then, on the SO launch, for each
+source: max |kernel - plain| on bf16 and
+float32 features, held to chip_smoke.py's B1E_REL, and two launches bit
+for bit; the wrapper's median CUDA-event time (15 calls, sources in
+turns); the kernel's device time (torch.profiler, 15 calls, in the order
+A B .. B A and averaged); the bound (chip_smoke.py
+roi_box_grad_bound_ms). Then the wrapper's host time by part (the
+argument checks, the output's allocation, the device and stream lookup,
+the ctypes launch alone); the wrapper as it is and with torch's launch
+context (a device switch and a torch Stream object), by CUDA events in
+turns and by host time; and whether the train steps handed B1b and B1e a
+contiguous grad_out. Prints a line each, then the results as one JSON
+line, also written to chiprun_out/roi_box_grad_ab.json.
 
 Exits 1 if a kernel disagrees with the plain version, 2 without a GPU.
 """
@@ -265,6 +289,267 @@ def main_backward(argv):
     return 0 if ok else 1
 
 
+def so_box_grad_launch():
+    """chip_smoke.py phase 17(b)'s SO launch of B1e: (feats, boxes,
+    strides, pool, grad_out, levels), as that phase hands them to its
+    check; and, for every B1b and B1e call of its train steps, (kernel,
+    whether its grad_out arrived contiguous)."""
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    got, layouts = {}, []
+    real_check = RA._check_grad_args
+
+    def recording(kernel, features, boxes, strides, output_size, grad_out,
+                  levels):
+        layouts.append((kernel, grad_out.is_contiguous()))
+        return real_check(kernel, features, boxes, strides, output_size,
+                          grad_out, levels)
+
+    def capture(label, feats, boxes, strides, pool, grad_out, levels,
+                phase="so-train"):
+        got["args"] = (feats, boxes, strides, pool, grad_out, levels)
+        return {}
+    checks = CS.check_roi_launch, CS.check_roi_backward, \
+        CS.check_roi_box_grad
+    CS.check_roi_launch = CS.check_roi_backward = lambda *a, **k: {}
+    CS.check_roi_box_grad = capture
+    RA._check_grad_args = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            CS.phase_so_train(tmp)
+    finally:
+        CS.check_roi_launch, CS.check_roi_backward, \
+            CS.check_roi_box_grad = checks
+        RA._check_grad_args = real_check
+    return got["args"], layouts
+
+
+def host_us(fn, reps=300):
+    """Host time per call of ``reps`` calls of fn queued back to back (no
+    sync between them), after a warm-up, in microseconds."""
+    import time
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def torch_launch_env(device):
+    """The wrappers' launch context before ``_launch_env``: always a
+    device switch, and the stream through a torch Stream object."""
+    import torch
+    return (torch.cuda.device(device),
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+def wrapper_costs(feats, boxes, strides, pool, grad_out, levels):
+    """B1e's wrapper as it is and with ``torch_launch_env`` in place of
+    ``_launch_env``: CUDA-event ms of each (median of 15, in turns), and
+    host microseconds a call of each and of the wrapper's parts (the
+    argument checks, the output's allocation, each launch context, the
+    ctypes launch alone). Returns ({name: ms}, {name: us})."""
+    import torch
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    real = RA._launch_env
+
+    def wrapper(env):
+        def run():
+            RA._launch_env = env
+            try:
+                return RA.multilevel_roi_align_box_grad_cuda(
+                    feats, boxes, strides, pool, grad_out, levels)
+            finally:
+                RA._launch_env = real
+        return run
+
+    def enter(env):
+        def run():
+            ctx, stream = env(boxes.device)
+            with ctx:
+                return stream
+        return run
+    b, n, c, dtype, g, lvl = RA._check_grad_args(
+        "B1e", feats, boxes, strides, pool, grad_out, levels)
+    out = torch.empty((b, n, 4), dtype=torch.float32, device=boxes.device)
+    fn = RA._cuda_fn("roi_align_box_grad", RA._BOX_ARGTYPES)
+    dims = [d for f in feats for d in (f.shape[1], f.shape[2])]
+    args = ([f.data_ptr() for f in feats] + dims
+            + [int(s) for s in strides]
+            + [boxes.data_ptr(), lvl.data_ptr(), g.data_ptr(),
+               out.data_ptr(), b, n, c, pool, int(dtype == torch.bfloat16),
+               real(boxes.device)[1]])
+    wrappers = {"wrapper": wrapper(real),
+                "wrapper_torch_env": wrapper(torch_launch_env)}
+    ms = dict(zip(wrappers, CS.median_ms(list(wrappers.values()))))
+    parts = dict(wrappers, **{
+        "checks": lambda: RA._check_grad_args(
+            "B1e", feats, boxes, strides, pool, grad_out, levels),
+        "output": lambda: torch.empty((b, n, 4), dtype=torch.float32,
+                                      device=boxes.device),
+        "launch_env": enter(real),
+        "torch_launch_env": enter(torch_launch_env),
+        "ctypes_launch": lambda: fn(*args),
+    })
+    return ms, {k: host_us(v) for k, v in parts.items()}
+
+
+def main_box_grad(argv):
+    """--box-grad: B1e of the port's source against each named source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from object_detection_tracking_tpu_torch import native
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    names = [os.path.join("object_detection_tracking_tpu_torch",
+                          native.CUDA_SOURCES["roi_align"])] + [
+        os.path.relpath(os.path.abspath(a), ROOT) for a in argv]
+
+    def build(i):
+        return native.build_shared(
+            os.path.join(ROOT, names[i]),
+            [native.cuda_tool("nvcc")] + native.NVCC_FLAGS,
+            f"roi_box_grad_ab{i}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(build, range(len(names))))
+    fns = []
+    for path in paths:
+        fn = ctypes.CDLL(path).roi_align_box_grad
+        fn.argtypes = RA._BOX_ARGTYPES
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    card = CS.card_line()
+    print(f"[ab] {card}; torch {torch.__version__}", flush=True)
+    for stem, text in sorted(native.build_logs.items()):
+        kernel = ""
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            if "box_grad" in kernel and ("registers" in line
+                                         or "spill" in line):
+                print(f"[ab]   {stem}: {kernel}: {line.strip()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    real_fn = RA._cuda_fn
+
+    def through(fn):
+        def call(feats, boxes, strides, pool, grad_out, levels):
+            RA._cuda_fn = lambda name, argtypes: (
+                fn if name == "roi_align_box_grad"
+                else real_fn(name, argtypes))
+            try:
+                return RA.multilevel_roi_align_box_grad_cuda(
+                    feats, boxes, strides, pool, grad_out, levels)
+            finally:
+                RA._cuda_fn = real_fn
+        return call
+    calls = [through(fn) for fn in fns]
+
+    def check(call, feats, boxes, strides, pool, grad_out, levels):
+        """Max |kernel - plain| over the features as given and in
+        float32, held to B1E_REL of max |plain|; two launches bit for
+        bit."""
+        err, fine = 0.0, True
+        runs = [feats] + ([[f.float() for f in feats]]
+                          if feats[0].dtype != torch.float32 else [])
+        for fs in runs:
+            got = call(fs, boxes, strides, pool, grad_out, levels)
+            ref = RA.multilevel_roi_align_box_vjp(fs, boxes, strides, pool,
+                                                  grad_out, levels)
+            e = (got - ref).abs().max().item()
+            fine &= bool(torch.isfinite(got).all()) and \
+                e <= CS.B1E_REL * ref.abs().max().item()
+            fine &= torch.equal(got.view(torch.int32), call(
+                fs, boxes, strides, pool, grad_out, levels).view(
+                    torch.int32))
+            err = max(err, e)
+        return err, fine
+
+    results, ok = {"synthetic": [], "so_launch": []}, True
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, kind, n, pool, c, off16 in CS.B1E_CASES:
+        feats, boxes, grad_out = CS.box_grad_case(gen, kind, n, c,
+                                                  torch.bfloat16, off16)
+        g = grad_out(pool)
+        levels = RA.fpn_map_rois_to_levels(boxes)
+        args = (feats, boxes, CS.STRIDES, pool, g, levels)
+        checked = [check(call, *args) for call in calls]
+        dev = [0.0] * len(calls)
+        for i in list(range(len(calls))) + list(reversed(range(len(calls)))):
+            dev[i] += CS.device_ms(functools.partial(calls[i], *args),
+                                   {"grad": "roi_align_box_grad"},
+                                   runs=15)["grad"] / 2
+        for name, (err, fine), d in zip(names, checked, dev):
+            ok &= fine
+            results["synthetic"].append({"case": label, "source": name,
+                                         "max_abs_err": err, "ok": fine,
+                                         "device_ms": d})
+            print(f"[ab] box-grad synthetic {label} {name}: max |kernel - "
+                  f"plain| {err:.3g} ({'ok' if fine else 'FAILED'}), device "
+                  f"{d:.4f} ms (torch.profiler, mean of 15, A B .. B A)",
+                  flush=True)
+        del feats, boxes, g, args
+    torch.cuda.empty_cache()
+    if not ok:
+        print(json.dumps({"card": card, "results": results}))
+        return 1
+
+    (feats, boxes, strides, pool, grad_out, levels), layouts = \
+        so_box_grad_launch()
+    torch.cuda.empty_cache()
+    label = f"SO launch N={boxes.shape[1]} P={pool}"
+    bound_ms, bound_by = CS.roi_box_grad_bound_ms(feats, boxes, strides,
+                                                  pool, levels)
+    args = (feats, boxes, strides, pool, grad_out, levels)
+    errs = []
+    for name, call in zip(names, calls):
+        err, fine = check(call, *args)
+        ok &= fine
+        errs.append((err, fine))
+    timed = [functools.partial(call, *args) for call in calls]
+    events = CS.median_ms(timed)
+    dev = [0.0] * len(timed)
+    for i in list(range(len(timed))) + list(reversed(range(len(timed)))):
+        dev[i] += CS.device_ms(timed[i], {"grad": "roi_align_box_grad"},
+                               runs=15)["grad"] / 2
+    for name, (err, fine), ev, d in zip(names, errs, events, dev):
+        results["so_launch"].append({
+            "launch": label, "source": name, "max_abs_err": err, "ok": fine,
+            "ms": ev, "device_ms": d, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / d})
+        print(f"[ab] box-grad {label} {name}: max |kernel - plain| "
+              f"{err:.3g} ({'ok' if fine else 'FAILED'}; bf16 and f32 "
+              f"features, bound {CS.B1E_REL} x max |plain|, bitwise "
+              f"repeat), {ev:.4f} ms (CUDA events, median of 15), device "
+              f"{d:.4f} ms (torch.profiler, mean of 15, A B .. B A), bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / d:.1%} of it",
+              flush=True)
+    wrapper_ms, host = wrapper_costs(*args)
+    contiguous = {k: sorted({c for kk, c in layouts if kk == k})
+                  for k in sorted({k for k, _ in layouts})}
+    print(f"[ab] box-grad {label}: the port's wrapper with its launch "
+          f"context / with torch's (a device switch and a Stream object): "
+          f"{wrapper_ms['wrapper']:.4f} / "
+          f"{wrapper_ms['wrapper_torch_env']:.4f} ms (CUDA events, median "
+          f"of 15, in turns); host us a call (300 queued back to back): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+          + f"; grad_out contiguous on arrival in the train steps: "
+          f"{contiguous}", flush=True)
+    line = json.dumps({"card": card, "results": results,
+                       "wrapper_ms": wrapper_ms, "host_us": host,
+                       "grad_out_contiguous": contiguous})
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "roi_box_grad_ab.json"),
+              "w") as f:
+        f.write(line + "\n")
+    print(line)
+    return 0 if ok else 1
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -272,6 +557,8 @@ def main(argv):
         return 2
     if argv[:1] == ["--backward"]:
         return main_backward(argv[1:])
+    if argv[:1] == ["--box-grad"]:
+        return main_box_grad(argv[1:])
     from object_detection_tracking_tpu_torch import native
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
     sources = [os.path.join(ROOT, "object_detection_tracking_tpu_torch",
