@@ -34,7 +34,17 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                vector path with lanes left idle; C=36, C=30 and levels
                off 16 bytes for the scalar paths), bf16 and float32
                features, within 1e-4 of max |plain|, two launches bitwise
-               equal, timed beside its bound
+               equal, timed beside its bound; then greedy NMS (N1, its
+               bitmask and scan kernels) against the plain fixpoint, keep
+               masks bit for bit, at each path's NMS shape (NMS_CASES:
+               proposals [8,5,1000] and, in training, [2,5,2000] at IOU
+               0.7; predictions [8,15,200], small objects [8,3,1000],
+               EfficientDet [8,90,200] at 0.5) on clustered boxes, timed
+               beside its bound; every later phase that runs an NMS holds
+               N1 the same way on its own forward's launches (7: proposals
+               and predictions; 9: a train step's proposals; 10: d0's; 17:
+               the small-object heads' five), and the video phases count
+               its launches (2 a batch; training 1 a step)
   4. main path R50-FPN partial-COCO at full width (random weights from seed
                0), bf16: synthetic 1280x720 frames -> VideoEnqueuer ->
                DetectionRunner -> Deep SORT on Person and Vehicle -> MOT
@@ -258,6 +268,23 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                flat NCCL all-reduce of the gradients apart, its result
                equal to its input; the group destroyed before the phase
                ends
+ 20. pack      cli/main.py pack at the CLI's defaults (R101-FPN v4, 16
+               classes, 1920x1080, --add_mask, bf16, backbone "xla" as JAX's
+               pack keeps it), --im_batch_size 8, phase 7's weights through
+               --load_from: params.npz, config.json, forward.pt2 (the
+               torch.export graph, params as inputs) and kernels/ (B1's and
+               N1's libraries); a fresh process with jax and the port's
+               models blocked loads it (load_packed: the kernels from the
+               pack by their hashed names, no nvcc) and runs fn on phase
+               7's frames, captured into one CUDA graph at its first call
+               and replayed; its outputs against this process's live
+               forward of the same config and weights (>= MATCH_MIN of the
+               detections matched, outputs finite), B1 3 times and N1's
+               two kernels twice in a profiled replay (by name: the
+               wrappers' counters do not tick on a replay); the pack's
+               wall, the fresh process's load and first-call seconds, the
+               replay's ms a batch beside the live forward's, the phase's
+               own wall
 Then one JSON line of kernels, the card line, and the last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports nothing of JAX: the port must run without it.
@@ -433,6 +460,21 @@ CKPT_PYAV_FRAMES = 16
 # data-parallel phase (19): steps through main.py train's sharded path and
 # through its one-process path; the timed step pairs
 PAR_STEPS, PAR_TIMED = 3, 5
+# greedy NMS (N1), phase 3's synthetic cases at each path's NMS shape
+# [groups..., N] and threshold: the proposals at test (image, level) and
+# in training, the predictions (image, class; 15 classes at 2R), the
+# small-object heads (image, SO class) and EfficientDet (image, class)
+NMS_CASES = (
+    ("proposals", (BATCH, 5, 1000), 0.7),
+    ("train proposals", (TRAIN_BATCH, 5, 2000), 0.7),
+    ("predictions", (BATCH, 15, 200), 0.5),
+    ("small objects", (BATCH, 3, 1000), 0.5),
+    ("effdet", (BATCH, 90, 200), 0.5),
+)
+# float32 operations of one IOU test in pairwise_iou's order (2 min, 2 max,
+# 2 subtractions, 2 clamps, the intersection's product, the union's add
+# and subtraction, the division, the comparison), and of one box's area
+NMS_PAIR_OPS, NMS_BOX_OPS = 13, 3
 
 
 def stage_rel(dtype_name, n_blocks):
@@ -1028,6 +1070,132 @@ def check_roi_launch(phase, label, feats, strides, boxes, valid, pool,
     return entry
 
 
+def nms_case(gen, shape):
+    """N1's synthetic inputs at a path's NMS shape: boxes [*shape, 4]
+    float32 in a 1920x1080 frame, clustered as proposals and detections
+    are (a box size a cluster, each box's centre and size jittered by about
+    10% of it, eight boxes a cluster on average), ~20% invalid."""
+    import torch
+    dev = "cuda"
+    n = shape[-1]
+    k = max(1, n // 8)
+    lead = tuple(shape[:-1])
+
+    def uniform(lo, hi, size):
+        return lo + (hi - lo) * torch.rand(size, device=dev, generator=gen)
+    centres = uniform(0.0, 1.0, lead + (k, 2)) * torch.tensor(
+        [ACTEV_W, ACTEV_H], device=dev)
+    sizes = torch.exp(uniform(math.log(8.0), math.log(400.0), lead + (k, 2)))
+    pick = torch.randint(0, k, tuple(shape) + (1,), device=dev,
+                         generator=gen).expand(*shape, 2)
+    wh = torch.gather(sizes, -2, pick) * torch.exp(
+        0.1 * torch.randn(tuple(shape) + (2,), device=dev, generator=gen))
+    c = torch.gather(centres, -2, pick) + 0.1 * wh * torch.randn(
+        tuple(shape) + (2,), device=dev, generator=gen)
+    boxes = torch.cat([c - wh / 2, c + wh / 2], -1).contiguous()
+    valid = torch.rand(tuple(shape), device=dev, generator=gen) > 0.2
+    return boxes, valid
+
+
+def nms_bound_ms(boxes, valid, keep):
+    """N1's least time on this card for these inputs: the boxes and
+    validity read once and the keep mask written once, over the memory
+    rate; against NMS_PAIR_OPS float32 operations for each (kept box,
+    later valid box) pair, the tests greedy NMS needs on this data, and
+    NMS_BOX_OPS a box, over the float32 rate. Returns (ms, "bytes" or
+    "operations")."""
+    later = valid.flip(-1).long().cumsum(-1).flip(-1) - valid.long()
+    pairs = int((keep.long() * later).sum().item())
+    nbytes = boxes.numel() * 4 + 2 * valid.numel()
+    ops = NMS_PAIR_OPS * pairs + NMS_BOX_OPS * valid.numel()
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_nms(phase, label, boxes, valid, thres, timed=True):
+    """One N1 launch (the keep mask of score-sorted boxes) redone on its
+    inputs through the kernel and the plain fixpoint: bit for bit equal.
+    With ``timed``: median CUDA-event times of the wrapper's call and of
+    the plain version, the kernel's own device time (torch.profiler, its
+    two launches), and the bound. Returns a dict."""
+    from object_detection_tracking_tpu_torch.ops import nms as N
+
+    def kernel():
+        return N.greedy_keep_cuda(boxes, valid, thres)
+
+    def plain():
+        return N.greedy_keep_plain(boxes, valid, thres)
+    got = kernel()
+    ref = plain()
+    diff = int((got != ref).sum().item())
+    if diff:
+        raise AssertionError(f"{phase} nms {label}: {diff} keep flags "
+                             f"differ from the plain fixpoint's")
+    entry = {"err": float(diff), "shape": list(valid.shape),
+             "valid": int(valid.sum().item()), "kept": int(ref.sum().item())}
+    msg = ""
+    if timed:
+        entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
+        dev = device_ms(kernel, {"mask": "nms_mask", "scan": "nms_scan"},
+                        runs=15)
+        entry["device_ms"] = dev["mask"] + dev["scan"]
+        entry["mask_ms"], entry["scan_ms"] = dev["mask"], dev["scan"]
+        entry["bound_ms"], entry["bound_by"] = nms_bound_ms(boxes, valid,
+                                                            ref)
+        entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
+        msg = (f"; kernel {entry['ms']:.4f} ms, plain "
+               f"{entry['plain_ms']:.4f} ms (median of 15, CUDA events), "
+               f"kernel device {entry['device_ms']:.4f} ms (mask "
+               f"{entry['mask_ms']:.4f}, scan {entry['scan_ms']:.4f}; "
+               f"torch.profiler, mean of 15), bound {entry['bound_ms']:.4f} "
+               f"ms ({entry['bound_by']}), {entry['bound_share']:.1%} of it")
+    log(phase, f"nms (N1) {label} {entry['shape']}, IOU > {thres}: "
+        f"{entry['kept']} of {entry['valid']} valid kept, keep masks equal "
+        f"to the plain fixpoint's bit for bit{msg}")
+    return entry
+
+
+def record_nms(fn):
+    """Runs fn with N1's wrapper recording the inputs of each of its calls
+    (cloned): returns (fn's result, [(boxes, valid, thres)])."""
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    real = N.greedy_keep_cuda
+    seen = []
+
+    def recording(boxes, valid, thres):
+        seen.append((boxes.clone(), valid.clone(), thres))
+        return real(boxes, valid, thres)
+    # the wrapper counts its launches on the module's name, which is
+    # ``recording`` meanwhile
+    recording.launches = real.launches
+    N.greedy_keep_cuda = recording
+    try:
+        out = fn()
+    finally:
+        N.greedy_keep_cuda = real
+        real.launches = recording.launches
+    return out, seen
+
+
+def check_nms_launches(phase, seen, labels):
+    """``check_nms`` (timed) on each recorded launch, by label."""
+    if len(seen) != len(labels):
+        raise AssertionError(f"{phase}: {len(seen)} NMS launches, want "
+                             f"{len(labels)} ({labels})")
+    return {label: check_nms(phase, label, *launch)
+            for label, launch in zip(labels, seen)}
+
+
+def phase_nms_kernels():
+    """N1 against the plain fixpoint at each path's NMS shape on clustered
+    synthetic boxes (NMS_CASES), timed."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return {label: check_nms("kernels", label, *nms_case(gen, shape), thres)
+            for label, shape, thres in NMS_CASES}
+
+
 def main_path_kernel_check(model, x, out, phase, timed=False):
     """Every kernel launch of one bf16 main-path forward, redone on that
     forward's own inputs through the kernel and through the plain version
@@ -1070,6 +1238,7 @@ def phase_main_path(tmp):
     import torch
     from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
         as cli
+    from object_detection_tracking_tpu_torch.ops import nms as N
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
     from object_detection_tracking_tpu_torch.params import init_params
     from object_detection_tracking_tpu_torch.runtime import DetectionRunner
@@ -1107,6 +1276,7 @@ def phase_main_path(tmp):
     n_frames = FRAME_GAP * BATCH * N_BATCHES
     coco_to_actev = dict(cli.coco_obj_to_actev_obj)
     RA.multilevel_roi_align_cuda.launches = 0
+    N.greedy_keep_cuda.launches = 0
     t0 = time.perf_counter()
     frames = cli.process_video(args, cfg, runner, "synthetic.mp4",
                                cfg.classid2name, coco_to_actev,
@@ -1114,11 +1284,13 @@ def phase_main_path(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = RA.multilevel_roi_align_cuda.launches
+    nms_n = N.greedy_keep_cuda.launches
     if frames != n_frames // FRAME_GAP or runner.batches != N_BATCHES:
         raise AssertionError(f"{frames} frames in {runner.batches} batches")
-    if launches != 2 * runner.batches:
-        raise AssertionError(f"roi_align launched {launches} times for "
-                             f"{runner.batches} batches, want 2 per batch")
+    if launches != 2 * runner.batches or nms_n != 2 * runner.batches:
+        raise AssertionError(f"roi_align launched {launches} and nms {nms_n}"
+                             f" times for {runner.batches} batches, want 2 "
+                             f"per batch each")
     rows = {}
     for obj in ("Person", "Vehicle"):
         path = os.path.join(tmp, "tracks", "synthetic", obj, "synthetic.txt")
@@ -1131,7 +1303,7 @@ def phase_main_path(tmp):
     main = {"frames": frames, "batches": runner.batches, "wall_s": wall,
             "fps": frames / wall, "ms_per_batch": 1e3 * wall / runner.batches,
             "dets_per_frame": runner.dets / frames, "launches": launches,
-            "track_rows": rows}
+            "nms_launches": nms_n, "track_rows": rows}
     names = {i: n for n, i in cfg.classname2id.items()}
     by_name = {names[k]: v for k, v in sorted(runner.by_label.items())}
     log("main", f"{frames} frames (1/{FRAME_GAP} of {n_frames}) in "
@@ -1139,7 +1311,8 @@ def phase_main_path(tmp):
         f"{main['fps']:.2f} processed fps, {main['ms_per_batch']:.1f} ms per "
         f"batch (decode + device + Deep SORT, pipelined), "
         f"{main['dets_per_frame']:.1f} detections/frame, roi_align launches "
-        f"{launches} (2 per batch), detections by class {by_name}, MOT "
+        f"{launches}, nms {nms_n} (2 per batch each), detections by class "
+        f"{by_name}, MOT "
         f"rows/ids {rows}")
     log("main", f"wall split per batch: {1e3 * runner.runner_s / runner.batches:.1f}"
         f" ms in DetectionRunner.run (frame wait, H2D, forward, D2H), "
@@ -1567,6 +1740,7 @@ def drive_actev(args, cfg, model, name):
     import torch
     from object_detection_tracking_tpu_torch.cli import obj_detect_tracking \
         as cli
+    from object_detection_tracking_tpu_torch.ops import nms as N
     from object_detection_tracking_tpu_torch.ops import resnet_stage as RS
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
     from object_detection_tracking_tpu_torch.runtime import DetectionRunner
@@ -1576,6 +1750,7 @@ def drive_actev(args, cfg, model, name):
     n_frames = FRAME_GAP * BATCH * N_BATCHES
     RA.multilevel_roi_align_cuda.launches = 0
     RS.fused_bottleneck_stage_cuda.launches = 0
+    N.greedy_keep_cuda.launches = 0
     t0 = time.perf_counter()
     frames = cli.process_video(args, cfg, runner, name + ".mp4",
                                cfg.classid2name, None,
@@ -1585,12 +1760,17 @@ def drive_actev(args, cfg, model, name):
     wall = time.perf_counter() - t0
     roi_n = RA.multilevel_roi_align_cuda.launches
     stage_n = RS.fused_bottleneck_stage_cuda.launches
+    runner.nms_launches = N.greedy_keep_cuda.launches
     if frames != n_frames // FRAME_GAP or runner.batches != N_BATCHES:
         raise AssertionError(f"{frames} frames in {runner.batches} batches")
     if roi_n != 3 * runner.batches or stage_n != 3 * runner.batches:
         raise AssertionError(
             f"{runner.batches} batches launched roi_align {roi_n} and the "
             f"bottleneck stage {stage_n} times, want 3 per batch each")
+    if runner.nms_launches != 2 * runner.batches:
+        raise AssertionError(f"{runner.batches} batches launched nms "
+                             f"{runner.nms_launches} times, want 2 per "
+                             f"batch (proposals, predictions)")
     rows = {}
     for obj in args.tracking_objs.split(","):
         path = os.path.join(args.tracking_dir, name, obj, name + ".txt")
@@ -1659,6 +1839,7 @@ def phase_actev(tmp):
     res = {"frames": frames, "batches": runner.batches, "wall_s": wall,
            "fps": frames / wall, "ms_per_batch": 1e3 * wall / runner.batches,
            "roi_launches": roi_n, "stage_launches": stage_n,
+           "nms_launches": runner.nms_launches,
            "dets_per_frame": runner.dets / frames, "track_rows": rows,
            "runner_ms": 1e3 * runner.runner_s / runner.batches,
            "caller_ms": 1e3 * runner.consumer_s / runner.batches}
@@ -1668,7 +1849,8 @@ def phase_actev(tmp):
         f"{res['ms_per_batch']:.1f} ms per batch, masks [{BATCH},"
         f"{cfg.result_per_im},28,28] in [0,1] every batch, {res['dets_per_frame']:.1f} detections/frame, "
         f"launches: roi_align {roi_n}, bottleneck stage {stage_n} (3 per "
-        f"batch each), detections by class {by_name}, MOT rows/ids {rows}")
+        f"batch each), nms {runner.nms_launches} (2 per batch), detections "
+        f"by class {by_name}, MOT rows/ids {rows}")
     log("actev", f"wall split per batch: {res['runner_ms']:.1f} ms in "
         f"DetectionRunner.run, {res['caller_ms']:.1f} ms in the caller "
         f"(Deep SORT, MOT rows)")
@@ -1718,8 +1900,10 @@ def phase_actev(tmp):
     torch.cuda.empty_cache()
 
     with torch.inference_mode():
-        out = model(x)
+        out, seen = record_nms(lambda: model(x))
     res["check"] = main_path_kernel_check(model, x, out, "actev", timed=True)
+    res["nms"] = check_nms_launches("actev", seen,
+                                    ["proposals", "predictions"])
     unfused = build_model(dataclasses.replace(cfg, backbone_impl="xla"),
                           tree, device)
     return model, unfused, x, res
@@ -1940,6 +2124,9 @@ def phase_effdet(tmp):
                                   timed=True, levels=levels)
     res["roi"]["level_counts"] = torch.bincount(
         levels.flatten().long(), minlength=5).tolist()
+    with torch.inference_mode():
+        _, seen = record_nms(lambda: model(x))
+    res["nms"] = check_nms_launches("effdet", seen, ["effdet"])
     res["profile"] = phase_profile(model, x, "effdet-profile")
     del model, x, feats, boxes, levels
     torch.cuda.empty_cache()
@@ -2058,6 +2245,7 @@ def phase_train(tmp):
     import numpy as np
     import torch
     from object_detection_tracking_tpu_torch.cli import main as train_cli
+    from object_detection_tracking_tpu_torch.ops import nms as N
     from object_detection_tracking_tpu_torch.ops import roi_align as RA
     from object_detection_tracking_tpu_torch.params import (init_params,
                                                             save_npz_tree)
@@ -2093,12 +2281,14 @@ def phase_train(tmp):
     torch.cuda.reset_peak_memory_stats()
     RA.multilevel_roi_align_cuda.launches = 0
     RA.multilevel_roi_align_backward_cuda.launches = 0
+    N.greedy_keep_cuda.launches = 0
     t0 = time.perf_counter()
     res = train_cli.mode_train(args, dataset=data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd_n = RA.multilevel_roi_align_cuda.launches
     bwd_n = RA.multilevel_roi_align_backward_cuda.launches
+    nms_n = N.greedy_keep_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     trainer = res["trainer"]
     model = trainer.model
@@ -2112,7 +2302,7 @@ def phase_train(tmp):
         f"checkpoints included); total loss per step: "
         + ", ".join(f"{v:.4f}" for v in losses))
     log("train", f"launches: roi_align {fwd_n}, roi_align_backward {bwd_n} "
-        f"(2 per step each); peak device memory "
+        f"(2 per step each), nms {nms_n} (1 per step); peak device memory "
         f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
     if res["step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
         raise AssertionError(f"{res['step']} steps, want {TRAIN_STEPS}")
@@ -2121,17 +2311,18 @@ def phase_train(tmp):
     if not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss did not fall on a repeated batch: "
                              f"{losses}")
-    if fwd_n != 2 * TRAIN_STEPS or bwd_n != 2 * TRAIN_STEPS:
+    if fwd_n != 2 * TRAIN_STEPS or bwd_n != 2 * TRAIN_STEPS \
+            or nms_n != TRAIN_STEPS:
         raise AssertionError(f"{TRAIN_STEPS} steps launched roi_align "
-                             f"{fwd_n} and roi_align_backward {bwd_n} "
-                             f"times, want 2 per step each")
+                             f"{fwd_n}, roi_align_backward {bwd_n} and nms "
+                             f"{nms_n} times, want 2, 2 and 1 per step")
     ckpts = sorted(os.listdir(train_cli.checkpoint_dir(args)))
     if ckpts != sorted([f"step_{TRAIN_STEPS // 2}.pt",
                         f"step_{TRAIN_STEPS}.pt"]):
         raise AssertionError(f"checkpoints {ckpts}")
     out = {"steps": res["step"], "losses": losses, "wall_s": wall,
            "peak_gib": peak / 2 ** 30, "roi_align_launches": fwd_n,
-           "roi_align_backward_launches": bwd_n}
+           "roi_align_backward_launches": bwd_n, "nms_launches": nms_n}
 
     tb = [torch.from_numpy(x).to(device) for x in batch]
     gen = torch.Generator(device=device)
@@ -2161,7 +2352,8 @@ def phase_train(tmp):
     # B1 and B1b on a step's own inputs (the box head's N=512 P=7 and the
     # mask head's fg rows at P=14), read off its autograd graph
     gen.manual_seed(1000 + TRAIN_TIMED + 1)
-    step_losses = trainer.losses(*tb, generator=gen)
+    step_losses, seen = record_nms(lambda: trainer.losses(*tb, generator=gen))
+    out["nms"] = check_nms_launches("train", seen, ["train proposals"])
     captured = roi_backward_inputs(step_losses["total_loss"])
     out["roi"], out["bwd"] = {}, {}
     for pool in sorted(captured):
@@ -4007,7 +4199,11 @@ def phase_small_objects(tmp, actev_prof):
         f"forward); so_final_valid per image {per_image}, by class "
         f"{by_name}; outputs finite")
 
-    (feats, strides, boxes, pool_valid), _ = so_launch_inputs(model, x)
+    ((feats, strides, boxes, pool_valid), _), seen = record_nms(
+        lambda: so_launch_inputs(model, x))
+    nms = check_nms_launches("small-objects", seen, [
+        "proposals", "small objects", "persons", "small-object predictions",
+        "predictions"])
     label = f"SO pooling N={boxes.shape[1]} P=7"
     roi = check_roi_launch("small-objects", label, feats, strides, boxes,
                            pool_valid, 7, True)
@@ -4015,7 +4211,8 @@ def phase_small_objects(tmp, actev_prof):
            "stage_launches": stage_n, "so_valid_per_image": per_image,
            "so_by_class": by_name,
            "pool_valid_slots": int(pool_valid.sum().item()),
-           "pool_slots": int(pool_valid.numel()), "roi": {label: roi}}
+           "pool_slots": int(pool_valid.numel()), "roi": {label: roi},
+           "nms": nms}
     prof = phase_profile(model, x, "small-objects")
     heads = model.small_objects
     model.small_objects = None          # the same model without the heads
@@ -4655,6 +4852,202 @@ def phase_parallel(tmp):
                 os.environ[k] = v
 
 
+# phase 20's fresh process: loads the pack with JAX and the port's models
+# blocked, runs fn on phase 7's frames, times the first
+# call (the capture) and the replays, counts the kernels of one profiled
+# replay by name; writes the outputs to an npz and prints one JSON line
+PACK_CHILD = r"""
+import json, sys, time
+t_start = time.perf_counter()
+for m in ("jax", "object_detection_tracking_tpu_torch.models"):
+    sys.modules[m] = None
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from object_detection_tracking_tpu_torch import native
+from object_detection_tracking_tpu_torch.runtime.aot import load_packed
+pack_dir, frames, out_path, tries = sys.argv[1:5]
+t_import = time.perf_counter() - t_start
+t0 = time.perf_counter()
+cfg, params, fn = load_packed(pack_dir, "cuda")
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(frames)).cuda()
+t0 = time.perf_counter()
+out = fn(params, x)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+walls = []
+for _ in range(7):
+    t0 = time.perf_counter()
+    out = fn(params, x)
+    torch.cuda.synchronize()
+    walls.append(1e3 * (time.perf_counter() - t0))
+names = ("roi_align_fwd", "nms_mask", "nms_scan")
+for _ in range(int(tries)):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(params, x)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.self_device_time_total > 0 and "cuda" in
+              str(e.device_type).lower()]
+    if all(any(n in e.key for e in events) for n in names):
+        break
+kernels = {n: [sum(e.count for e in events if n in e.key),
+               sum(e.self_device_time_total for e in events
+                   if n in e.key) / 1e3] for n in names}
+np.savez(out_path, **{k: v.cpu().numpy() for k, v in out.items()})
+print(json.dumps({
+    "import_s": t_import, "load_s": load_s, "load_split_s": fn.load_seconds,
+    "first_call_s": first_s,
+    "replay_ms": sorted(walls)[len(walls) // 2],
+    "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+    "kernels": kernels, "libraries": native.lib_paths,
+    "models_imported": any(k.startswith(
+        "object_detection_tracking_tpu_torch.models.") for k in sys.modules),
+    "wall_s": time.perf_counter() - t_start}))
+"""
+
+
+def phase_pack(tmp, frames):
+    """Phase 20: main.py pack at the CLI's defaults (R101-FPN v4, 16
+    classes, 1080x1920, masks, bf16, backbone "xla" as JAX's pack keeps
+    it) with B=8 and phase 7's weights through --load_from; a fresh
+    process loads the pack (load_packed, the port's models blocked) and
+    runs fn on phase 7's frames as one captured CUDA graph; its outputs
+    against this process's live forward of the pack's config and weights
+    (>= MATCH_MIN of the detections matched, outputs finite); B1 and N1 by
+    name in a profiled replay. Returns a summary dict."""
+    import numpy as np
+    import torch
+    from object_detection_tracking_tpu_torch.cli import main as pack_cli
+    from object_detection_tracking_tpu_torch.config import DetectorConfig
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    from object_detection_tracking_tpu_torch.ops import roi_align as RA
+    from object_detection_tracking_tpu_torch.params import save_npz_tree
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    _, _, tree = actev_setup(tmp, device)
+    init = os.path.join(tmp, "actev_tree.npz")
+    save_npz_tree(init, tree)
+    args = pack_cli.get_args([
+        "pack", "--im_batch_size", str(BATCH), "--add_mask", "--device",
+        "cuda", "--load_from", init, "--outbasepath",
+        os.path.join(tmp, "runs"), "--modelname", "actev"])
+    RA.multilevel_roi_align_cuda.launches = 0
+    N.greedy_keep_cuda.launches = 0
+    t0 = time.perf_counter()
+    out_dir = pack_cli.mode_pack(args)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "config.json")) as f:
+        raw = json.load(f)
+    meta = raw.pop("pack")
+    cfg = DetectorConfig.from_json(json.dumps(raw))
+    got = (cfg.resnet_depth, cfg.use_dilations, cfg.use_frcnn_class_agnostic,
+           cfg.num_class, cfg.add_mask, cfg.compute_dtype, cfg.backbone_impl,
+           cfg.roi_align_impl, cfg.short_edge_size, cfg.max_size,
+           meta["batch"], meta["kernels"])
+    if got != (101, True, True, 16, True, "bfloat16", "xla", "pallas",
+               ACTEV_H, ACTEV_W, BATCH, ["nms", "roi_align"]):
+        raise AssertionError(f"not the CLI's v4 default pack: {got}")
+    sizes = {name: os.path.getsize(os.path.join(out_dir, name)) / 1e6
+             for name in ("params.npz", "forward.pt2")}
+    sizes["kernels"] = sum(
+        os.path.getsize(os.path.join(out_dir, "kernels", n))
+        for n in os.listdir(os.path.join(out_dir, "kernels"))) / 1e6
+    log("pack", f"main.py pack, R101-FPN v4 + masks, B={BATCH}, "
+        f"{ACTEV_W}x{ACTEV_H}, {cfg.compute_dtype}: {pack_s:.2f} s wall "
+        f"(build, load, "
+        f"FLOP count, export, load_packed and one captured call); "
+        f"params.npz {sizes['params.npz']:.1f} MB, forward.pt2 "
+        f"{sizes['forward.pt2']:.2f} MB, kernels/ {sizes['kernels']:.2f} MB "
+        f"({meta['kernels']}); launches counted in the pack's live runs: "
+        f"roi_align {RA.multilevel_roi_align_cuda.launches}, nms "
+        f"{N.greedy_keep_cuda.launches}")
+
+    x_path = os.path.join(tmp, "frames.npy")
+    np.save(x_path, frames.numpy())
+    got_path = os.path.join(tmp, "packed_out.npz")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", PACK_CHILD, out_dir, x_path, got_path,
+         str(PROFILE_TRIES)], capture_output=True, text=True, timeout=900,
+        env=env)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pack: the fresh process failed "
+                             f"({proc.returncode}):\n{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(got_path) as data:
+        packed = {k: data[k] for k in data.files}
+
+    model = build_model(cfg, tree, device)
+    x = frames.to(device)
+    with torch.inference_mode():
+        live = {k: v.cpu().numpy() for k, v in model(x).items()}
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+    live_ms = sorted(walls)[2]
+    del model
+    torch.cuda.empty_cache()
+    if set(packed) != set(live):
+        raise AssertionError(f"pack: outputs {sorted(packed)} against the "
+                             f"live forward's {sorted(live)}")
+    for k, v in packed.items():
+        if v.dtype.kind == "f" and not np.isfinite(v).all():
+            raise AssertionError(f"pack: {k} not finite")
+    share, total = match_share(live, packed)
+    equal = sorted(k for k in live if np.array_equal(live[k], packed[k]))
+    if not share >= MATCH_MIN:
+        raise AssertionError(f"pack: the packed forward matches {share:.4f} "
+                             f"of {total} live detections < {MATCH_MIN}")
+    counts = {n: c for n, (c, _) in child["kernels"].items()}
+    if counts != {"roi_align_fwd": 3, "nms_mask": 2, "nms_scan": 2}:
+        raise AssertionError(f"pack: one profiled replay launched {counts}, "
+                             f"want B1 3 times and N1's two kernels twice")
+    packed_libs = all(os.path.dirname(p) == os.path.join(out_dir, "kernels")
+                      for p in child["libraries"].values())
+    if child["models_imported"] or not packed_libs:
+        raise AssertionError(f"pack: the fresh process imported a model or "
+                             f"loaded a kernel from outside the pack: "
+                             f"{child['libraries']}")
+    res = {"pack_s": pack_s, "sizes_mb": sizes, "kernels": meta["kernels"],
+           "child_s": child_s, "child": child, "live_ms": live_ms,
+           "match": share, "detections": total, "equal_outputs": equal,
+           "libraries_from_pack": packed_libs}
+    k = child["kernels"]
+    log("pack", f"fresh process (jax and the port's models blocked): "
+        f"{child['wall_s']:.2f} s in the process ({child_s:.2f} s with its "
+        f"start); import {child['import_s']:.2f} s, load_packed "
+        f"{child['load_s']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in child["load_split_s"].items())
+        + f"; kernels from the pack), first call "
+        f"(warm-up, CUDA-graph capture, replay) {child['first_call_s']:.2f} "
+        f"s; replay {child['replay_ms']:.2f} ms a batch of {BATCH} (host "
+        f"wall, median of 7, synchronized) against the live forward's "
+        f"{live_ms:.2f} ms (same config and weights, median of 5)")
+    log("pack", f"one profiled replay: {child['device_ms']:.2f} ms of "
+        f"kernels; roi_align_fwd x{k['roi_align_fwd'][0]} "
+        f"{k['roi_align_fwd'][1]:.4f} ms, nms_mask x{k['nms_mask'][0]} "
+        f"{k['nms_mask'][1]:.4f} ms, nms_scan x{k['nms_scan'][0]} "
+        f"{k['nms_scan'][1]:.4f} ms (launched inside the graph: the "
+        f"wrappers' counters do not tick on a replay); against the live "
+        f"forward: {share:.4f} of {total} detections matched (bound "
+        f"{MATCH_MIN}), bit-equal outputs {equal}; outputs finite")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log("pack", f"phase wall {res['wall_s']:.1f} s")
+    return res
+
+
 def build_kernels(native):
     """Every CUDA source compiled at once, one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4756,6 +5149,53 @@ def so_box_grad_row(so_train, synthetic):
                   f"synthetic"}
 
 
+def nms_kernel_row(main_res, actev, train, effdet, so, pack, synthetic):
+    """The kernels line's row of N1: the ActEV forward's own two launches
+    (proposals, predictions) redone and timed; every other path's own
+    launches and phase 3's synthetic cases beside them."""
+    launches = actev["nms"]
+    paths = {"train": train["nms"], "effdet": effdet["nms"],
+             "small_objects": so["nms"]}
+    every = list(launches.values()) + list(synthetic.values()) + [
+        e for p in paths.values() for e in p.values()]
+    device = sum(r["device_ms"] for r in launches.values())
+    bound = sum(r["bound_ms"] for r in launches.values())
+    return {
+        "name": "nms_greedy_keep", "route": "cuda",
+        "source": "object_detection_tracking_tpu_torch/csrc/nms.cu",
+        "replaces": "object_detection_tracking_tpu/ops/nms.py:33",
+        "launches": actev["nms_launches"],
+        "max_abs_err": max(r["err"] for r in every),
+        "ms": sum(r["ms"] for r in launches.values()),
+        "device_ms": device,
+        "plain_ms": sum(r["plain_ms"] for r in launches.values()),
+        "bound_ms": bound, "bound_share": bound / device,
+        "bound_by": ("operations" if all(
+            r["bound_by"] == "operations" for r in launches.values())
+            else "bytes"),
+        "library_ms": None, "per_launch": launches,
+        "paths_per_launch": paths, "synthetic": synthetic,
+        "r50_720p_launches": main_res["nms_launches"],
+        "train_launches": train["nms_launches"],
+        "packed_replay": {n: pack["child"]["kernels"][n]
+                          for n in ("nms_mask", "nms_scan")},
+        "shapes": "ActEV path, one bf16 forward's own launches (B=8, "
+                  "1088x1920): proposals [8,5,1000] at IOU 0.7, "
+                  "predictions [8,15,200] at 0.5; ms, device_ms (the "
+                  "bitmask and scan kernels), plain_ms (the Jacobi "
+                  "fixpoint with its host convergence test) and bound_ms "
+                  "summed over the two; launches: phase 7's 8 batches; "
+                  "r50_720p_launches: phase 4's; max_abs_err: keep flags "
+                  "that differ from the plain "
+                  "version's, over every path and case; paths_per_launch: "
+                  "a training step's proposals [2,5,2000], EfficientDet-d0 "
+                  "[8,90,200], the small-object heads' five; synthetic: "
+                  "phase 3's clustered cases at each path's shape; "
+                  "library_ms: none (no torchvision on the card); JAX's "
+                  "counterpart is the lax.while_loop of _greedy_keep, not "
+                  "a Pallas kernel"}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4775,6 +5215,7 @@ def main():
     sass = build_kernels(native)
     kres = phase_kernels()
     box_grad_synthetic = phase_box_grad_kernels()
+    nms_synthetic = phase_nms_kernels()
     sres = phase_stage()
     kept = tempfile.TemporaryDirectory()    # phase 7's MOT files, for 15
     with tempfile.TemporaryDirectory() as tmp:
@@ -4783,6 +5224,7 @@ def main():
         del model, x
         torch.cuda.empty_cache()
         model, unfused, x, actev = phase_actev(tmp)
+        frames7 = x.cpu()                   # phase 7's frames, for 20
         shutil.copytree(os.path.join(tmp, "actev_tracks"),
                         os.path.join(kept.name, "actev_tracks"))
     prof = phase_profile(model, x, "actev-profile", unfused=unfused)
@@ -4823,6 +5265,9 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         parallel = phase_parallel(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pack = phase_pack(tmp, frames7)
     imgs_roi = (list(imgs["check"]["roi"].values())
                 + list(imgs["options_check"]["roi"].values())
                 + [imgs["extract_box_feat"]])
@@ -4889,6 +5334,9 @@ def main():
         "ckpt_launches": ckpt["roi_launches"],
         "parallel_launches": parallel["roi_align_launches"],
         "parallel_per_launch": parallel["roi"],
+        "packed_replay": {
+            "launches": pack["child"]["kernels"]["roi_align_fwd"][0],
+            "device_ms": pack["child"]["kernels"]["roi_align_fwd"][1]},
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -4918,7 +5366,10 @@ def main():
                   "(N=300 P=7, B=2) of the train steps, timed on their own "
                   "inputs; parallel_*: phase 19's data-parallel train steps "
                   "(NCCL, world size 1; the training phase's shapes), "
-                  "one step's launches timed on their own inputs"},
+                  "one step's launches timed on their own inputs; "
+                  "packed_replay: phase 20's packed forward (backbone "
+                  "xla), its launches and their device ms in one profiled "
+                  "CUDA-graph replay, counted by kernel name"},
         {"name": "roi_align_backward", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"
@@ -4993,7 +5444,9 @@ def main():
                    "per_conv_floor_ms, cudnn_stack_ms and by_kind summed "
                    "over the three"}
         ] + [effdet_kernel_row(name, effdet, kres) for name in ("d0", "d6")]
-        + [so_box_grad_row(so_train, box_grad_synthetic)],
+        + [so_box_grad_row(so_train, box_grad_synthetic),
+           nms_kernel_row(main_res, actev, train, effdet, so, pack,
+                          nms_synthetic)],
         "effdet_path": {k: v for k, v in effdet.items()
                         if k not in ("roi", "d6")},
         "effdet_d6": {k: v for k, v in effdet["d6"].items() if k != "roi"},
@@ -5014,6 +5467,7 @@ def main():
         "ckpt": {k: v for k, v in ckpt.items() if k != "check"},
         "parallel": {k: v for k, v in parallel.items()
                      if k not in ("roi", "bwd")},
+        "pack": pack,
         "card": card}
     print(json.dumps(kernels))
     print(card)

@@ -16,8 +16,15 @@ object_detection_tracking_tpu/cli/main.py:25-523).
            native layout), or this driver's own ``step_<N>.pt``.
   forward: prints, as the JAX driver does, that cli.obj_detect_imgs is
            the batch image inference, and exits with code 2.
-  pack:    not ported: the counterpart of the JAX package's
-           runtime/aot.py waits for a captured CUDA graph (ROADMAP A12).
+  pack:    the forward frozen for one batch shape (runtime/aot.py): writes
+           <outbasepath>/<modelname>/packed/ with params.npz (the native
+           flat npz; float16 with --pack_params_dtype float16, cast back
+           to float32 in the graph), config.json, forward.pt2 (the
+           torch.export graph, params as inputs) and kernels/ (the
+           hand-written kernels' libraries its graph launches, on CUDA);
+           then loads the pack with load_packed and runs it once (on CUDA
+           as one captured CUDA graph) and prints GFLOP a frame
+           (FlopCounterMode), the graph's MB and the kernels' MB.
 
 The same flags as the JAX CLI, plus ``--device`` (default cuda; with no GPU
 it raises unless ``--device cpu`` is given). ``--compute_dtype`` defaults to
@@ -52,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
 import os
 import sys
 import time
@@ -63,8 +71,8 @@ import torch
 from ..config import DetectorConfig, TrainConfig
 from ..models import get_model
 from ..parallel.mesh import launched_by_torchrun
-from ..params import (init_params, params_from_jax, params_to_jax,
-                      save_npz_tree)
+from ..params import (init_params, native_names, params_from_jax,
+                      params_to_jax, save_npz_tree)
 from ..train import Trainer
 from ..utils.weights import load_weights
 from .obj_detect_tracking import resolve_device
@@ -91,7 +99,8 @@ def get_args(argv=None):
                    "ref models.py:3507-3525)")
     p.add_argument("--pack_params_dtype", default="float32",
                    choices=["float32", "float16"],
-                   help="pack mode (not ported yet)")
+                   help="pack mode: params.npz in float16 (the graph "
+                   "casts them back to float32)")
     p.add_argument("--device", default="cuda",
                    help="cuda | cuda:N | cpu (no silent CPU fallback)")
     # model
@@ -521,6 +530,88 @@ def mode_test(args) -> float:
     return run_eval(args, cfg, model)
 
 
+def mode_pack(args):
+    """Freeze the forward for ``--im_batch_size`` frames of
+    ``--short_edge_size`` x ``--max_size`` on ``--device`` (JAX
+    main.py:420-503): the params as the native npz, the config, the
+    exported graph and the kernels' libraries, then the pack loaded by
+    ``load_packed`` and run once. Returns the pack's directory."""
+    import shutil
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from .. import native
+    from ..runtime.aot import (OP_KERNELS, ParamsForward, export_program,
+                               exported_ops, load_packed, save_program,
+                               torch_layout)
+    device = resolve_device(args.device)
+    cfg, model = build(args, is_train=False, device=device)
+    model.eval()
+    out_dir = os.path.join(args.outbasepath, args.modelname, "packed")
+    os.makedirs(out_dir, exist_ok=True)
+    names = native_names(model)
+    flat = {}
+    for name, arr in _flatten(params_to_jax(model)).items():
+        if args.pack_params_dtype == "float16" and arr.dtype == np.float32:
+            # halves the params' bytes to store and upload; float16 keeps
+            # 10 mantissa bits and the weights are far inside its range
+            arr = arr.astype(np.float16)
+        flat[name] = arr
+    save_npz_tree(os.path.join(out_dir, "params.npz"), flat)
+    # the graph's inputs: the npz's values in the port's layouts
+    params = {name: torch.from_numpy(torch_layout(arr, names[name][1])).to(
+        device) for name, arr in flat.items()}
+    b = max(1, args.im_batch_size)
+    h, w = cfg.short_edge_size, cfg.max_size
+    example = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=device)
+    forward = ParamsForward(model, {n: attr for n, (attr, _) in
+                                    names.items()})
+    with FlopCounterMode(display=False) as counter, torch.inference_mode():
+        forward(params, example)
+    program = export_program(forward, params, example)
+    blob = save_program(program)
+    with open(os.path.join(out_dir, "forward.pt2"), "wb") as f:
+        f.write(blob)
+    ops = exported_ops(program)
+    kernels = sorted(OP_KERNELS[o] for o in ops) if device.type == "cuda" \
+        else []
+    kdir = os.path.join(out_dir, "kernels")
+    shutil.rmtree(kdir, ignore_errors=True)
+    os.makedirs(kdir)
+    for name in kernels:
+        native.load_cuda(name)
+        shutil.copy(native.lib_paths[name], kdir)
+    raw = json.loads(cfg.to_json())
+    raw["pack"] = {
+        "torch": torch.__version__, "device": device.type, "batch": b,
+        "params_dtype": args.pack_params_dtype, "kernels": kernels,
+        "layout": {n: kind for n, (_, kind) in names.items()
+                   if kind in ("conv", "dense")}}
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(raw, f, indent=2, sort_keys=True)
+    # the consumer's path on what was written (JAX main.py:477-497)
+    _, packed_params, fn = load_packed(out_dir, device)
+    fn(packed_params, example)
+    kernel_mb = sum(os.path.getsize(os.path.join(kdir, n))
+                    for n in os.listdir(kdir)) / 1e6
+    print(f"packed to {out_dir}; compiled for ({b}, {h}, {w}, 3), "
+          f"{counter.get_total_flops() / b / 1e9:.1f} GFLOP/frame, "
+          f"exported graph {len(blob) / 1e6:.1f} MB, "
+          f"shipped kernels {kernel_mb:.1f} MB")
+    return out_dir
+
+
+def _flatten(tree, prefix=()):
+    """A nested param tree as {slash name: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = v
+    return out
+
+
 def main(argv=None):
     args = get_args(argv)
     if args.mode == "train":
@@ -528,10 +619,7 @@ def main(argv=None):
     elif args.mode == "test":
         mode_test(args)
     elif args.mode == "pack":
-        raise NotImplementedError(
-            "main.py pack is not ported yet: the counterpart of the JAX "
-            "package's runtime/aot.py waits for a captured CUDA graph "
-            "(ROADMAP A12)")
+        mode_pack(args)
     else:
         print("forward mode: use cli.obj_detect_imgs (same output format)",
               file=sys.stderr)

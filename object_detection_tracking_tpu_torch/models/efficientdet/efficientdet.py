@@ -206,6 +206,11 @@ class EfficientDet(nn.Module):
                               self.num_classes * NUM_ANCHORS)
         self.box_net = Head(c, self.head_repeats, 4 * NUM_ANCHORS)
         self._anchors: Dict = {}
+        # on the model's device: the forward copies nothing from the host
+        self.register_buffer("rgb_mean", torch.tensor([0.485, 0.456, 0.406]),
+                             persistent=False)
+        self.register_buffer("rgb_std", torch.tensor([0.229, 0.224, 0.225]),
+                             persistent=False)
         self.requires_grad_(bool(cfg.is_train))
 
     @property
@@ -222,10 +227,8 @@ class EfficientDet(nn.Module):
         x = images.float().flip(-1)                 # BGR -> RGB
         # an IEEE division on every device (CUDA turns division by a
         # Python scalar into a multiplication by its reciprocal)
-        x = x / torch.tensor(255.0, device=x.device)
-        mean = torch.tensor([0.485, 0.456, 0.406], device=x.device)
-        std = torch.tensor([0.229, 0.224, 0.225], device=x.device)
-        x = (x - mean) / std
+        x = x / torch.full((), 255.0, device=x.device)
+        x = (x - self.rgb_mean) / self.rgb_std
         s = self.image_size
         h, w = x.shape[1:3]
         x = nn.functional.pad(x, (0, 0, 0, s - w, 0, s - h))

@@ -161,6 +161,17 @@ class FasterRCNNFPN(nn.Module):
             self.partial_label_idx = self.partial_box_idx = None
             self.num_out_class = cfg.num_class
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        # the forward's constants live on the model's device, so a forward
+        # copies nothing from the host: no sync, and a CUDA graph can
+        # capture it
+        for name, value in (("bgr_mean", _BGR_MEAN), ("bgr_std", _BGR_STD),
+                            ("reg_w", cfg.fastrcnn_bbox_reg_weights)):
+            self.register_buffer(
+                name, torch.tensor(value, dtype=torch.float32),
+                persistent=False)
+        self.register_buffer("so_idx", torch.tensor(self.so_ids,
+                                                    dtype=torch.long),
+                             persistent=False)
         self._geometry: Dict = {}
         # every leaf takes gradients in training, as under jax.grad
         self.requires_grad_(bool(cfg.is_train))
@@ -236,10 +247,8 @@ class FasterRCNNFPN(nn.Module):
         if images.dim() == 3:
             images = self.i420_to_bgr(images)
         h, w = images.shape[1:3]
-        mean = torch.from_numpy(_BGR_MEAN).to(images.device)
-        std = torch.from_numpy(_BGR_STD).to(images.device)
         x = images.float() * (1.0 / 255.0)
-        x = (x - mean) / std
+        x = (x - self.bgr_mean) / self.bgr_std
         x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
         return x.to(self.compute_dtype)
 
@@ -421,8 +430,7 @@ class FasterRCNNFPN(nn.Module):
             if not cfg.use_frcnn_class_agnostic:
                 box_out = box_out[:, :, self.partial_box_idx, :]
 
-        reg_w = torch.tensor(cfg.fastrcnn_bbox_reg_weights,
-                             dtype=torch.float32, device=box_out.device)
+        reg_w = self.reg_w
         decoded = decode_boxes(box_out / reg_w, prop_boxes[:, :, None, :],
                                cfg.bbox_decode_clip)
         decoded = clip_boxes(decoded, (h, w))
@@ -480,7 +488,7 @@ class FasterRCNNFPN(nn.Module):
         r = cfg.result_per_im
         n_so = len(self.so_ids)
         b, k = dec.shape[:2]
-        ids = torch.tensor(self.so_ids, device=dec.device)
+        ids = self.so_idx
         cand = dec[:, :, ids].transpose(1, 2)                 # [B, n_so, K, 4]
         scores = probs[:, :, ids + 1].transpose(1, 2).detach()
         idx, so_valid = nms(cand.detach(), scores, r,
@@ -565,8 +573,7 @@ class FasterRCNNFPN(nn.Module):
         at least ``fastrcnn_fg_thres``; softmax CE over each class's valid
         rows, averaged over the classes, then over the images."""
         cfg = self.config
-        reg_w = torch.tensor(cfg.fastrcnn_bbox_reg_weights,
-                             dtype=torch.float32, device=box_out.device)
+        reg_w = self.reg_w
         box_full = box_out
         if cfg.use_frcnn_class_agnostic:
             box_full = box_out.expand(*box_out.shape[:2], cfg.num_class - 1,
@@ -668,8 +675,7 @@ class FasterRCNNFPN(nn.Module):
         label_out, box_out = self._apply_head(roi_feats, roi_boxes,
                                               samples["valid"])
 
-        reg_w = torch.tensor(cfg.fastrcnn_bbox_reg_weights,
-                             dtype=torch.float32, device=images.device)
+        reg_w = self.reg_w
         fg_gt_safe = torch.where(samples["fg"][..., None],
                                  samples["fg_gt_boxes"], roi_boxes)
         enc_fg = encode_boxes(fg_gt_safe, roi_boxes) * reg_w

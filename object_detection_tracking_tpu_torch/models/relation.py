@@ -90,7 +90,8 @@ def relation_attend(p: Relation, feat: torch.Tensor, boxes: torch.Tensor,
     r = ref_feat.shape[1]
     group = p.group
     gd = d // group
-    unit = torch.tensor([0.0, 0.0, 1.0, 1.0], device=boxes.device)
+    unit = torch.zeros(4, device=boxes.device)    # [0, 0, 1, 1], no sync
+    unit[2:] = 1.0
     if valid is not None:
         boxes = torch.where(valid[..., None], boxes, unit)
     if ref_valid is not None:

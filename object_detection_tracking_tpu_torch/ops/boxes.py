@@ -91,7 +91,9 @@ def encode_boxes(target: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
 def clip_boxes(boxes: torch.Tensor, hw) -> torch.Tensor:
     """Clip x1y1x2y2 boxes into [0,W]x[0,H] (JAX ops/boxes.py:111-117)."""
     h, w = hw
-    hi = torch.tensor([w, h, w, h], dtype=boxes.dtype, device=boxes.device)
+    # filled on the device: no host copy, no sync
+    hi = torch.full((4,), float(w), dtype=boxes.dtype, device=boxes.device)
+    hi[1::2] = float(h)
     return torch.minimum(boxes.clamp_min(0.0), hi)
 
 

@@ -9,19 +9,27 @@ Same formulation as the JAX op, batched over any leading dims:
   3. solve ``keep[i] = valid[i] & ~OR_j<i(keep[j] & m[j, i])`` by Jacobi
      fixpoint iteration. After t steps the first t sorted positions are
      final, and the only fixed point is the greedy solution, so stopping at
-     a fixed point is exact. Convergence is checked on the host every
-     ``_CHECK_EVERY`` steps: extra steps past the fixed point change
-     nothing, and the check is one device sync per chunk instead of one
-     per step.
+     a fixed point is exact.
+
+Step 3 is the custom op ``odt::greedy_keep`` (``_greedy_keep``), so that
+torch.export holds it as one node and a CUDA graph can capture it. On a CPU
+tensor it runs the fixpoint above (``greedy_keep_plain``, the spec), which
+checks convergence on the host every ``_CHECK_EVERY`` steps; on a CUDA
+tensor it launches kernel N1 (``greedy_keep_cuda``, csrc/nms.cu), which
+computes the same unique solution on the device with no host sync, the
+counterpart of JAX's ``lax.while_loop`` (JAX ops/nms.py:33-53).
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
 
 from .boxes import pairwise_iou
+from .roi_align import _launch_env
 
 _NEG_INF = -1e30
 _CHECK_EVERY = 4
@@ -35,8 +43,11 @@ def sort_desc_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     return vals[..., :k], idx[..., :k]
 
 
-def _greedy_keep(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
-                 iou_thres: float) -> torch.Tensor:
+def greedy_keep_plain(boxes_sorted: torch.Tensor,
+                      valid_sorted: torch.Tensor,
+                      iou_thres: float) -> torch.Tensor:
+    """The greedy keep mask [..., N] of score-sorted boxes [..., N, 4] by
+    the Jacobi fixpoint (module note): kernel N1's spec and CPU path."""
     n = boxes_sorted.shape[-2]
     iou = pairwise_iou(boxes_sorted, boxes_sorted)
     earlier = torch.ones((n, n), dtype=torch.bool,
@@ -50,6 +61,67 @@ def _greedy_keep(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
             keep = valid_sorted & ~(suppress & keep[..., :, None]).any(-2)
         if torch.equal(keep, prev):
             return keep
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 4 + [_I, _I, ctypes.c_float, _P]
+
+
+def greedy_keep_cuda(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+                     iou_thres: float) -> torch.Tensor:
+    """``greedy_keep_plain``'s result through the hand-written kernel N1
+    (csrc/nms.cu): a CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel's two launches (the suppression bitmask, then one
+    warp a group scanning it) on the current stream, with no sync, or
+    raises. Bit-equal to the plain version. ``greedy_keep_cuda.launches``
+    counts the launches."""
+    if boxes_sorted.device.type == "cpu":
+        return greedy_keep_plain(boxes_sorted, valid_sorted, iou_thres)
+    if boxes_sorted.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes_sorted.device}")
+    lead, n = tuple(valid_sorted.shape[:-1]), valid_sorted.shape[-1]
+    if (boxes_sorted.shape != (*lead, n, 4)
+            or boxes_sorted.dtype != torch.float32
+            or valid_sorted.dtype != torch.bool
+            or valid_sorted.device != boxes_sorted.device):
+        raise ValueError("boxes must be float32 [..., N, 4] and valid bool "
+                         "[..., N] on one device")
+    groups = math.prod(lead)
+    boxes = boxes_sorted.reshape(groups, n, 4).contiguous()
+    valid = valid_sorted.reshape(groups, n).contiguous()
+    keep = torch.empty((groups, n), dtype=torch.bool, device=boxes.device)
+    if groups * n:
+        words = -(-n // 64)
+        mask = torch.empty((groups, n, words), dtype=torch.int64,
+                           device=boxes.device)
+        from ..native import load_cuda
+        fn = load_cuda("nms").nms_keep
+        if fn.argtypes is None:
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        ctx, stream = _launch_env(boxes.device)
+        with ctx:
+            err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                     mask.data_ptr(), groups, n, float(iou_thres), stream)
+        if err != 0:
+            raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
+        greedy_keep_cuda.launches += 1
+    return keep.reshape(*lead, n)
+
+
+greedy_keep_cuda.launches = 0
+
+
+@torch.library.custom_op("odt::greedy_keep", mutates_args=())
+def _greedy_keep(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+                 iou_thres: float) -> torch.Tensor:
+    """The greedy keep mask as one opaque op (module note)."""
+    return greedy_keep_cuda(boxes_sorted, valid_sorted, iou_thres)
+
+
+@_greedy_keep.register_fake
+def _(boxes_sorted, valid_sorted, iou_thres):
+    return torch.empty_like(valid_sorted)
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
@@ -69,7 +141,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
         boxes, -2, order[..., None].expand(*order.shape, 4))
     valid_s = torch.gather(valid, -1, order)
 
-    keep = _greedy_keep(boxes_s, valid_s, iou_thres)
+    keep = _greedy_keep(boxes_s, valid_s, float(iou_thres))
 
     rank = torch.cumsum(keep.long(), dim=-1) - 1
     sel = keep & (rank < max_out)

@@ -29,7 +29,14 @@ output [B, N, P, P, C] float32, with invalid slots exactly 0.
 Divisions by constants go through a 0-dim tensor on the operands' device:
 on CUDA, PyTorch turns division by a Python scalar into multiplication by
 its reciprocal, which rounds differently from the kernel's IEEE division
-and could move a sample across the in-image boundary.
+and could move a sample across the in-image boundary. The tensor is filled
+on the device (``torch.full``), not copied from the host, so the kernel's
+wrapper neither syncs nor breaks a CUDA-graph capture.
+
+The forward kernel's wrapper is the custom op ``odt::multilevel_roi_align``
+(``multilevel_roi_align_cuda`` calls it), so that torch.export holds a
+launch as one node: its CPU implementation is the plain version, its CUDA
+one launches kernel B1.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -46,7 +53,7 @@ _LOG2 = math.log(2.0)
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     """IEEE x / c on every device (see module note)."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def fpn_map_rois_to_levels(boxes: torch.Tensor) -> torch.Tensor:
@@ -315,24 +322,11 @@ def _check_grad_args(kernel, features, boxes, strides, output_size,
             lvl.to(torch.int32).contiguous())
 
 
-def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
-                              boxes: torch.Tensor, strides: Sequence[int],
-                              output_size: int,
-                              valid: Optional[torch.Tensor] = None,
-                              levels: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
-    """FPN ROIAlign through the hand-written CUDA kernel; same arguments and
-    result as ``multilevel_roi_align``: up to five levels, canonical levels
-    or the caller's (``levels`` [B, N], clamped into the levels given by the
-    kernel). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel on the current stream (no sync) or raises. Any C is taken: the kernel reads 16 bytes per lane where C is a
-    multiple of 8 (bf16) or 4 (float32) and every level starts on 16 bytes,
-    and runs its scalar path otherwise (for example a feature view whose
-    storage offset leaves it off 16 bytes).
-    ``multilevel_roi_align_cuda.launches`` counts the launches."""
-    if boxes.device.type == "cpu":
-        return multilevel_roi_align(features, boxes, strides, output_size,
-                                    valid=valid, levels=levels)
+def _roi_align_launch(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                      strides: Sequence[int], output_size: int,
+                      valid: Optional[torch.Tensor],
+                      levels: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel B1's launch on CUDA tensors (``multilevel_roi_align_cuda``)."""
     b, n, c, dtype = _check_cuda_args(features, boxes, strides, output_size,
                                       _MAX_LEVELS)
     if valid is not None and (valid.shape != (b, n)
@@ -365,6 +359,48 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
         raise RuntimeError(f"roi_align kernel launch failed: CUDA error {err}")
     multilevel_roi_align_cuda.launches += 1
     return out
+
+
+@torch.library.custom_op("odt::multilevel_roi_align", mutates_args=())
+def _roi_align_op(features: List[torch.Tensor], boxes: torch.Tensor,
+                  strides: List[int], output_size: int,
+                  valid: Optional[torch.Tensor],
+                  levels: Optional[torch.Tensor]) -> torch.Tensor:
+    if boxes.device.type == "cpu":
+        return multilevel_roi_align(features, boxes, strides, output_size,
+                                    valid=valid, levels=levels)
+    return _roi_align_launch(features, boxes, strides, output_size, valid,
+                             levels)
+
+
+@_roi_align_op.register_fake
+def _(features, boxes, strides, output_size, valid, levels):
+    b, n = boxes.shape[:2]
+    return torch.empty((b, n, output_size, output_size,
+                        features[0].shape[-1]), dtype=torch.float32,
+                       device=boxes.device)
+
+
+def multilevel_roi_align_cuda(features: Sequence[torch.Tensor],
+                              boxes: torch.Tensor, strides: Sequence[int],
+                              output_size: int,
+                              valid: Optional[torch.Tensor] = None,
+                              levels: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """FPN ROIAlign through the hand-written CUDA kernel; same arguments and
+    result as ``multilevel_roi_align``: up to five levels, canonical levels
+    or the caller's (``levels`` [B, N], clamped into the levels given by the
+    kernel). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel on the current stream (no sync) or raises, all through the
+    custom op ``odt::multilevel_roi_align``. Any C is taken: the kernel
+    reads 16 bytes per lane where C is a multiple of 8 (bf16) or 4
+    (float32) and every level starts on 16 bytes, and runs its scalar path
+    otherwise (for example a feature view whose storage offset leaves it
+    off 16 bytes). ``multilevel_roi_align_cuda.launches`` counts the
+    launches (a CUDA graph's replays run no Python and count none)."""
+    return torch.ops.odt.multilevel_roi_align(
+        list(features), boxes, [int(s) for s in strides], int(output_size),
+        valid, levels)
 
 
 multilevel_roi_align_cuda.launches = 0

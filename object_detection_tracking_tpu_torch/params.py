@@ -27,7 +27,7 @@ same bits.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +56,18 @@ def _leaves(model: nn.Module):
         else:
             for n, t in mod.named_parameters(recurse=False):
                 yield path + (n,), t, "plain"
+
+
+def native_names(model: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """For every weight of ``model``, its native npz name -> (its state
+    name, its layout kind: "conv", "dense", "bias", "bn" or "plain")."""
+    attrs = {"conv": {"W": "weight"}, "dense": {"W": "weight"},
+             "bias": {"b": "bias"}}
+    out = {}
+    for path, _, kind in _leaves(model):
+        attr = attrs.get(kind, {}).get(path[-1], path[-1])
+        out["/".join(path)] = (".".join(path[:-1] + (attr,)), kind)
+    return out
 
 
 def _to_torch(value: np.ndarray, kind: str) -> torch.Tensor:

@@ -49,6 +49,7 @@ def _sources():
     yield os.path.join(ROOT, "tools", "torch_dp_step_ab.py")
     yield os.path.join(ROOT, "tools", "torch_runner_fanout.py")
     yield os.path.join(ROOT, "tools", "torch_dp_cards.py")
+    yield os.path.join(ROOT, "tools", "torch_pack_coldstart.py")
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():
@@ -133,6 +134,7 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "from object_detection_tracking_tpu_torch.data import coco, kf1, "
         "video\n"
         "from object_detection_tracking_tpu_torch.runtime import profiler\n"
+        "from object_detection_tracking_tpu_torch.runtime import aot\n"
         "from object_detection_tracking_tpu_torch.cli import (eval, "
         "eval_mot, track_to_json, vis_json, vis_tracks, get_frames_resize, "
         "check_and_vis_global_tracks, kf1_convert, generate_util_graph)\n"
@@ -229,6 +231,9 @@ def test_no_source_imports_or_reads_the_jax_package():
                         "inceptionresnetv2_reid", "nasnet_reid")),
             "object_detection_tracking_tpu_torch/parallel/__init__.py",
             "object_detection_tracking_tpu_torch/parallel/mesh.py",
+            "object_detection_tracking_tpu_torch/runtime/aot.py",
+            "object_detection_tracking_tpu_torch/csrc/nms.cu",
+            "tools/torch_pack_coldstart.py",
             } <= scanned
 
 

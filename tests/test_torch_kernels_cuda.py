@@ -21,7 +21,12 @@ a hair apart may round to neighbouring bf16 values: within one bf16 step
 (B1e) against autograd of the plain version with respect to the boxes:
 within 1e-4 of the largest |plain| (float32 sums over 2P samples of
 C channels of four taps, in another fixed order; the features' dtype does
-not change the products, bf16 converts exactly)."""
+not change the products, bf16 converts exactly). Greedy NMS (N1) against
+the plain fixpoint: the keep masks bit for bit (the greedy answer is the
+fixpoint's unique fixed point, and N1 computes each IOU in the plain
+version's float32 operations and order); the forwards make no host sync;
+the packed forward's CUDA-graph replay equals its exported graph bit for
+bit."""
 
 import dataclasses
 
@@ -960,3 +965,148 @@ def test_small_object_forward_with_kernel_matches_plain(cuda):
     assert torch.equal(got["so_final_labels"], ref["so_final_labels"])
     assert (got["so_final_boxes"] - ref["so_final_boxes"]).abs().max() <= 1e-3
     assert (got["so_final_probs"] - ref["so_final_probs"]).abs().max() <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# greedy NMS (kernel N1) and the packed forward
+
+
+def nms_sorted(boxes, valid, scores=None):
+    """Score-sorted (boxes, valid) as ``ops.nms.nms`` hands them to the
+    keep op (the given order where ``scores`` is None)."""
+    if scores is None:
+        return boxes, valid
+    order = np.argsort(-np.where(valid, scores, -1e30), -1, kind="stable")
+    return (np.take_along_axis(boxes, order[..., None], -2),
+            np.take_along_axis(valid, order, -1))
+
+
+def n1_check(cuda, boxes, valid, thres):
+    """N1 against the plain fixpoint, bit for bit (the CPU's and the
+    card's plain version agree too); one launch counted."""
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
+    ref = N.greedy_keep_plain(b, v, thres)
+    before = N.greedy_keep_cuda.launches
+    got = N.greedy_keep_cuda(b.to(cuda), v.to(cuda), thres)
+    torch.cuda.synchronize()
+    assert N.greedy_keep_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(N.greedy_keep_plain(b.to(cuda), v.to(cuda),
+                                           thres).cpu(), ref)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ties", "all_overlapping", "all_invalid",
+                                  "n37", "n65", "n130", "n200",
+                                  "threshold_0.7", "threshold_0.5",
+                                  "threshold_0.3"])
+def test_nms_kernel_matches_plain_cases(cuda, name):
+    """N1 on tests/torch_nms_cases.py's cases (the CPU test holds the
+    plain version against JAX on the same ones)."""
+    from torch_nms_cases import make_case
+    b, s, v, thres, _ = make_case(name)
+    keep = n1_check(cuda, *nms_sorted(b, v, s), thres)
+    if name.startswith("threshold"):
+        assert keep.tolist() == [[True, True], [True, True], [True, False]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["proposals_test", "proposals_train",
+                                  "predictions", "effdet", "small_objects"])
+@pytest.mark.parametrize("thres", [0.7, 0.5])
+def test_nms_kernel_matches_plain_at_path_shapes(cuda, path, thres):
+    from torch_nms_cases import PATH_SHAPES, path_case
+    boxes, valid = path_case(PATH_SHAPES[path], seed=len(path))
+    keep = n1_check(cuda, boxes, valid, thres)
+    assert 0 < keep.sum() < valid.sum()     # something suppressed
+
+
+@pytest.mark.cuda
+def test_nms_kernel_rejects_bad_arguments(cuda):
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    b = torch.zeros(2, 10, 4, device=cuda)
+    v = torch.ones(2, 10, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        N.greedy_keep_cuda(b.double(), v, 0.5)
+    with pytest.raises(ValueError):
+        N.greedy_keep_cuda(b, v.float(), 0.5)
+    with pytest.raises(ValueError):
+        N.greedy_keep_cuda(b[:, :9], v, 0.5)
+    assert N.greedy_keep_cuda(b[:, :0], v[:, :0], 0.5).shape == (2, 0)
+
+
+def sync_free_model(cfg, cuda, h, w, model_name=None):
+    model = get_model(cfg, model_name)
+    tree = init_params(cfg, seed=0, model_name=model_name or cfg.model)
+    model = params_from_jax(tree, model).to(cuda).eval()
+    imgs = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, h, w, 3)).astype(np.uint8)).to(cuda)
+    return model, imgs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_name", ["faster_rcnn", "efficientdet"])
+def test_forward_runs_no_host_sync(cuda, model_name):
+    """The inference forwards on the card make no host sync (ROADMAP C7:
+    NMS was the last): under ``set_sync_debug_mode("error")`` a forward
+    after the first (which builds the per-size anchors) raises nothing.
+    R50-FPN v4 with the mask head and the small-object heads with the
+    person association; EfficientDet (efficientdet-test, B1's five-level
+    launch)."""
+    if model_name == "faster_rcnn":
+        cfg = DetectorConfig.from_version(
+            4, num_class=16, resnet_depth=50, short_edge_size=128,
+            max_size=192, compute_dtype="bfloat16", add_mask=True,
+            use_small_object_head=True, use_so_association=True)
+        model, imgs = sync_free_model(cfg, cuda, 128, 192)
+    else:
+        cfg = DetectorConfig.coco(
+            result_per_im=10, compute_dtype="bfloat16",
+            efficientdet_name="efficientdet-test")
+        model, imgs = sync_free_model(cfg, cuda, 96, 128, "efficientdet")
+    model(imgs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model(imgs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in out.values()
+               if t.is_floating_point())
+
+
+@pytest.mark.cuda
+def test_aot_compile_replays_the_exported_graph(cuda):
+    """The packed forward on the card: the exported graph run eagerly
+    equals the live forward, and its CUDA-graph capture (``aot_compile``)
+    equals the exported graph run eagerly, bit for bit, for the params it
+    was captured with, for a second params tree copied into its buffers,
+    and for the first again."""
+    from object_detection_tracking_tpu_torch.params import native_names
+    from object_detection_tracking_tpu_torch.runtime import aot
+    cfg = DetectorConfig.from_version(
+        4, num_class=16, resnet_depth=50, short_edge_size=128, max_size=192,
+        compute_dtype="bfloat16", add_mask=True)
+    model, imgs = sync_free_model(cfg, cuda, 128, 192)
+    names = native_names(model)
+    state = dict(model.named_parameters())
+    state.update(model.named_buffers())
+    params = {n: state[a].detach().clone() for n, (a, _) in names.items()}
+    forward = aot.ParamsForward(model, {n: a for n, (a, _) in names.items()})
+    blob = aot.export_serialized(forward, params, imgs)
+    call = aot.load_exported(blob, cuda)
+    live = model(imgs)
+    eager = call(params, imgs)
+    for k in live:
+        assert torch.equal(eager[k], live[k]), k
+    replay = aot.aot_compile(call, params, imgs)
+    other = {k: v * 1.01 for k, v in params.items()}
+    eager2 = call(other, imgs)
+    assert not torch.equal(eager2["final_probs"], eager["final_probs"])
+    for p, ref in ((params, eager), (other, eager2), (params, eager)):
+        got = replay(p, imgs)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
