@@ -34,8 +34,8 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                vector path with lanes left idle; C=36, C=30 and levels
                off 16 bytes for the scalar paths), bf16 and float32
                features, within 1e-4 of max |plain|, two launches bitwise
-               equal, timed beside its bound; then greedy NMS (N1, its
-               bitmask and scan kernels) against the plain fixpoint, keep
+               equal, timed beside its bound; then greedy NMS (N1, one
+               launch, its regime printed) against the plain fixpoint, keep
                masks bit for bit, at each path's NMS shape (NMS_CASES:
                proposals [8,5,1000] and, in training, [2,5,2000] at IOU
                0.7; predictions [8,15,200], small objects [8,3,1000],
@@ -279,9 +279,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
                7's frames, captured into one CUDA graph at its first call
                and replayed; its outputs against this process's live
                forward of the same config and weights (>= MATCH_MIN of the
-               detections matched, outputs finite), B1 3 times and N1's
-               two kernels twice in a profiled replay (by name: the
-               wrappers' counters do not tick on a replay); the pack's
+               detections matched, outputs finite), B1 3 times and N1
+               twice in a profiled replay (by name: the wrappers'
+               counters do not tick on a replay), beside their bounds
+               from the live forward's own launches; the pack's
                wall, the fresh process's load and first-call seconds, the
                replay's ms a batch beside the live forward's, the phase's
                own wall
@@ -475,6 +476,8 @@ NMS_CASES = (
 # 2 subtractions, 2 clamps, the intersection's product, the union's add
 # and subtraction, the division, the comparison), and of one box's area
 NMS_PAIR_OPS, NMS_BOX_OPS = 13, 3
+# N1's one kernel, by the name the profiler records
+NMS_KERNEL = "nms_keep_kernel"
 
 
 def stage_rel(dtype_name, n_blocks):
@@ -1113,12 +1116,26 @@ def nms_bound_ms(boxes, valid, keep):
                                  else "operations")
 
 
+def nms_regime(valid):
+    """N1's launch for keep masks of ``valid``'s shape (ops/nms.py
+    greedy_keep_plan): cluster size, CTAs, threads and shared bytes a
+    CTA, and its text."""
+    import math
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    plan = N.greedy_keep_plan(math.prod(valid.shape[:-1]), valid.shape[-1],
+                              valid.device)
+    text = (f"cluster of {plan['cluster']} CTAs a group" if plan["cluster"]
+            > 1 else "one CTA a group")
+    return plan, (f"{text}, {plan['ctas']} CTAs of {plan['threads']} "
+                  f"threads, {plan['smem']} shared bytes each")
+
+
 def check_nms(phase, label, boxes, valid, thres, timed=True):
     """One N1 launch (the keep mask of score-sorted boxes) redone on its
     inputs through the kernel and the plain fixpoint: bit for bit equal.
     With ``timed``: median CUDA-event times of the wrapper's call and of
     the plain version, the kernel's own device time (torch.profiler, its
-    two launches), and the bound. Returns a dict."""
+    one launch), and the bound. Returns a dict."""
     from object_detection_tracking_tpu_torch.ops import nms as N
 
     def kernel():
@@ -1134,25 +1151,23 @@ def check_nms(phase, label, boxes, valid, thres, timed=True):
                              f"differ from the plain fixpoint's")
     entry = {"err": float(diff), "shape": list(valid.shape),
              "valid": int(valid.sum().item()), "kept": int(ref.sum().item())}
+    entry["regime"], regime = nms_regime(valid)
     msg = ""
     if timed:
         entry["ms"], entry["plain_ms"] = median_ms([kernel, plain])
-        dev = device_ms(kernel, {"mask": "nms_mask", "scan": "nms_scan"},
-                        runs=15)
-        entry["device_ms"] = dev["mask"] + dev["scan"]
-        entry["mask_ms"], entry["scan_ms"] = dev["mask"], dev["scan"]
+        entry["device_ms"] = device_ms(kernel, {"keep": NMS_KERNEL},
+                                       runs=15)["keep"]
         entry["bound_ms"], entry["bound_by"] = nms_bound_ms(boxes, valid,
                                                             ref)
         entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
         msg = (f"; kernel {entry['ms']:.4f} ms, plain "
                f"{entry['plain_ms']:.4f} ms (median of 15, CUDA events), "
-               f"kernel device {entry['device_ms']:.4f} ms (mask "
-               f"{entry['mask_ms']:.4f}, scan {entry['scan_ms']:.4f}; "
+               f"kernel device {entry['device_ms']:.4f} ms (one launch; "
                f"torch.profiler, mean of 15), bound {entry['bound_ms']:.4f} "
                f"ms ({entry['bound_by']}), {entry['bound_share']:.1%} of it")
-    log(phase, f"nms (N1) {label} {entry['shape']}, IOU > {thres}: "
-        f"{entry['kept']} of {entry['valid']} valid kept, keep masks equal "
-        f"to the plain fixpoint's bit for bit{msg}")
+    log(phase, f"nms (N1) {label} {entry['shape']}, IOU > {thres} "
+        f"({regime}): {entry['kept']} of {entry['valid']} valid kept, keep "
+        f"masks equal to the plain fixpoint's bit for bit{msg}")
     return entry
 
 
@@ -4883,7 +4898,7 @@ for _ in range(7):
     out = fn(params, x)
     torch.cuda.synchronize()
     walls.append(1e3 * (time.perf_counter() - t0))
-names = ("roi_align_fwd", "nms_mask", "nms_scan")
+names = ("roi_align_fwd", "nms_keep_kernel")
 for _ in range(int(tries)):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4989,7 +5004,8 @@ def phase_pack(tmp, frames):
     model = build_model(cfg, tree, device)
     x = frames.to(device)
     with torch.inference_mode():
-        live = {k: v.cpu().numpy() for k, v in model(x).items()}
+        live_out, seen = record_nms(lambda: model(x))
+        live = {k: v.cpu().numpy() for k, v in live_out.items()}
         walls = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -4997,7 +5013,18 @@ def phase_pack(tmp, frames):
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
     live_ms = sorted(walls)[2]
-    del model
+    # the bounds of the replay's kernels, from the live forward's own
+    # inputs (the replay's outputs equal its, bit for bit, below)
+    _, feats, strides, roi_launches = forward_kernel_inputs(model, x,
+                                                            live_out)
+    bounds = {"roi_align_fwd": sum(
+        roi_bound_ms(feats, boxes, valid, strides, pool)
+        for _, boxes, valid, pool in roi_launches),
+        "nms_keep_kernel": sum(
+            nms_bound_ms(boxes, valid,
+                         N.greedy_keep_plain(boxes, valid, thres))[0]
+            for boxes, valid, thres in seen)}
+    del model, live_out, feats, roi_launches, seen
     torch.cuda.empty_cache()
     if set(packed) != set(live):
         raise AssertionError(f"pack: outputs {sorted(packed)} against the "
@@ -5011,9 +5038,9 @@ def phase_pack(tmp, frames):
         raise AssertionError(f"pack: the packed forward matches {share:.4f} "
                              f"of {total} live detections < {MATCH_MIN}")
     counts = {n: c for n, (c, _) in child["kernels"].items()}
-    if counts != {"roi_align_fwd": 3, "nms_mask": 2, "nms_scan": 2}:
+    if counts != {"roi_align_fwd": 3, NMS_KERNEL: 2}:
         raise AssertionError(f"pack: one profiled replay launched {counts}, "
-                             f"want B1 3 times and N1's two kernels twice")
+                             f"want B1 3 times and N1 twice")
     packed_libs = all(os.path.dirname(p) == os.path.join(out_dir, "kernels")
                       for p in child["libraries"].values())
     if child["models_imported"] or not packed_libs:
@@ -5023,7 +5050,7 @@ def phase_pack(tmp, frames):
     res = {"pack_s": pack_s, "sizes_mb": sizes, "kernels": meta["kernels"],
            "child_s": child_s, "child": child, "live_ms": live_ms,
            "match": share, "detections": total, "equal_outputs": equal,
-           "libraries_from_pack": packed_libs}
+           "libraries_from_pack": packed_libs, "bound_ms": bounds}
     k = child["kernels"]
     log("pack", f"fresh process (jax and the port's models blocked): "
         f"{child['wall_s']:.2f} s in the process ({child_s:.2f} s with its "
@@ -5037,9 +5064,11 @@ def phase_pack(tmp, frames):
         f"{live_ms:.2f} ms (same config and weights, median of 5)")
     log("pack", f"one profiled replay: {child['device_ms']:.2f} ms of "
         f"kernels; roi_align_fwd x{k['roi_align_fwd'][0]} "
-        f"{k['roi_align_fwd'][1]:.4f} ms, nms_mask x{k['nms_mask'][0]} "
-        f"{k['nms_mask'][1]:.4f} ms, nms_scan x{k['nms_scan'][0]} "
-        f"{k['nms_scan'][1]:.4f} ms (launched inside the graph: the "
+        f"{k['roi_align_fwd'][1]:.4f} ms (bound "
+        f"{bounds['roi_align_fwd']:.4f} ms, bytes), N1 "
+        f"x{k[NMS_KERNEL][0]} {k[NMS_KERNEL][1]:.4f} ms (bound "
+        f"{bounds[NMS_KERNEL]:.4f} ms; the bounds from the live forward's "
+        f"own launches) (launched inside the graph: the "
         f"wrappers' counters do not tick on a replay); against the live "
         f"forward: {share:.4f} of {total} detections matched (bound "
         f"{MATCH_MIN}), bit-equal outputs {equal}; outputs finite")
@@ -5177,12 +5206,14 @@ def nms_kernel_row(main_res, actev, train, effdet, so, pack, synthetic):
         "paths_per_launch": paths, "synthetic": synthetic,
         "r50_720p_launches": main_res["nms_launches"],
         "train_launches": train["nms_launches"],
-        "packed_replay": {n: pack["child"]["kernels"][n]
-                          for n in ("nms_mask", "nms_scan")},
+        "packed_replay": {
+            "launches": pack["child"]["kernels"][NMS_KERNEL][0],
+            "device_ms": pack["child"]["kernels"][NMS_KERNEL][1],
+            "bound_ms": pack["bound_ms"][NMS_KERNEL]},
         "shapes": "ActEV path, one bf16 forward's own launches (B=8, "
                   "1088x1920): proposals [8,5,1000] at IOU 0.7, "
                   "predictions [8,15,200] at 0.5; ms, device_ms (the "
-                  "bitmask and scan kernels), plain_ms (the Jacobi "
+                  "one keep-mask kernel), plain_ms (the Jacobi "
                   "fixpoint with its host convergence test) and bound_ms "
                   "summed over the two; launches: phase 7's 8 batches; "
                   "r50_720p_launches: phase 4's; max_abs_err: keep flags "
@@ -5336,7 +5367,8 @@ def main():
         "parallel_per_launch": parallel["roi"],
         "packed_replay": {
             "launches": pack["child"]["kernels"]["roi_align_fwd"][0],
-            "device_ms": pack["child"]["kernels"]["roi_align_fwd"][1]},
+            "device_ms": pack["child"]["kernels"]["roi_align_fwd"][1],
+            "bound_ms": pack["bound_ms"]["roi_align_fwd"]},
         "r50_720p": {"launches": main_res["launches"], "ms_n1000": k_ms,
                      "device_ms_n1000": d_ms, "plain_ms_n1000": p_ms,
                      "bound_ms_n1000": b_ms, "ms_n100": k100,
@@ -5369,7 +5401,8 @@ def main():
                   "one step's launches timed on their own inputs; "
                   "packed_replay: phase 20's packed forward (backbone "
                   "xla), its launches and their device ms in one profiled "
-                  "CUDA-graph replay, counted by kernel name"},
+                  "CUDA-graph replay, counted by kernel name, and their "
+                  "bound from the live forward's own launches"},
         {"name": "roi_align_backward", "route": "cuda",
          "source": "object_detection_tracking_tpu_torch/csrc/roi_align.cu",
          "replaces": "object_detection_tracking_tpu/ops/pallas/"

@@ -64,17 +64,44 @@ def greedy_keep_plain(boxes_sorted: torch.Tensor,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I, _I, ctypes.c_float, _P]
+_ARGTYPES = [_P] * 3 + [_I, _I, ctypes.c_float, _P]
+# the most boxes a group kernel N1 takes (one CTA's shared memory holds
+# them: csrc/nms.cu kMaxN)
+MAX_BOXES = 8192
+
+
+def _lib():
+    """csrc/nms.cu's library, built at first use, its entries typed."""
+    from ..native import load_cuda
+    lib = load_cuda("nms")
+    if lib.nms_keep.argtypes is None:
+        lib.nms_keep.argtypes = _ARGTYPES
+        lib.nms_keep.restype = ctypes.c_int
+        lib.nms_plan.argtypes = [_I, _I, _P]
+        lib.nms_plan.restype = ctypes.c_int
+    return lib
+
+
+def greedy_keep_plan(groups: int, n: int, device=None) -> dict:
+    """The launch kernel N1 makes on ``device`` (a card) for ``groups``
+    groups of ``n`` boxes: the cluster size (CTAs a group), the CTAs, the
+    threads and the shared bytes of a CTA (csrc/nms.cu's regime)."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _lib().nms_plan(groups, n, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"nms_plan failed: CUDA error {err}")
+    return dict(zip(("cluster", "ctas", "threads", "smem"), out))
 
 
 def greedy_keep_cuda(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                      iou_thres: float) -> torch.Tensor:
     """``greedy_keep_plain``'s result through the hand-written kernel N1
     (csrc/nms.cu): a CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel's two launches (the suppression bitmask, then one
-    warp a group scanning it) on the current stream, with no sync, or
-    raises. Bit-equal to the plain version. ``greedy_keep_cuda.launches``
-    counts the launches."""
+    launches the kernel once on the current stream (a CTA, or a cluster
+    of CTAs, a group; only ``keep`` is allocated), with no sync, or
+    raises. Bit-equal to the plain version; N is at most ``MAX_BOXES``.
+    ``greedy_keep_cuda.launches`` counts the launches."""
     if boxes_sorted.device.type == "cpu":
         return greedy_keep_plain(boxes_sorted, valid_sorted, iou_thres)
     if boxes_sorted.device.type != "cuda":
@@ -86,23 +113,21 @@ def greedy_keep_cuda(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
             or valid_sorted.device != boxes_sorted.device):
         raise ValueError("boxes must be float32 [..., N, 4] and valid bool "
                          "[..., N] on one device")
+    if n > MAX_BOXES:
+        raise ValueError(f"kernel N1 takes at most {MAX_BOXES} boxes a "
+                         f"group, not {n}")
     groups = math.prod(lead)
     boxes = boxes_sorted.reshape(groups, n, 4).contiguous()
+    if boxes.data_ptr() % 16:
+        boxes = boxes.clone()     # the kernel reads a box as one float4
     valid = valid_sorted.reshape(groups, n).contiguous()
     keep = torch.empty((groups, n), dtype=torch.bool, device=boxes.device)
     if groups * n:
-        words = -(-n // 64)
-        mask = torch.empty((groups, n, words), dtype=torch.int64,
-                           device=boxes.device)
-        from ..native import load_cuda
-        fn = load_cuda("nms").nms_keep
-        if fn.argtypes is None:
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
+        fn = _lib().nms_keep
         ctx, stream = _launch_env(boxes.device)
         with ctx:
             err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                     mask.data_ptr(), groups, n, float(iou_thres), stream)
+                     groups, n, float(iou_thres), stream)
         if err != 0:
             raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
         greedy_keep_cuda.launches += 1

@@ -50,6 +50,7 @@ def _sources():
     yield os.path.join(ROOT, "tools", "torch_runner_fanout.py")
     yield os.path.join(ROOT, "tools", "torch_dp_cards.py")
     yield os.path.join(ROOT, "tools", "torch_pack_coldstart.py")
+    yield os.path.join(ROOT, "tools", "torch_nms_ab.py")
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():
@@ -234,6 +235,7 @@ def test_no_source_imports_or_reads_the_jax_package():
             "object_detection_tracking_tpu_torch/runtime/aot.py",
             "object_detection_tracking_tpu_torch/csrc/nms.cu",
             "tools/torch_pack_coldstart.py",
+            "tools/torch_nms_ab.py",
             } <= scanned
 
 

@@ -999,9 +999,10 @@ def n1_check(cuda, boxes, valid, thres):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["ties", "all_overlapping", "all_invalid",
-                                  "n37", "n65", "n130", "n200",
-                                  "threshold_0.7", "threshold_0.5",
-                                  "threshold_0.3"])
+                                  "n1", "n37", "n64", "n65", "n129", "n130",
+                                  "n200", "disjoint", "degenerate",
+                                  "negative_threshold", "threshold_0.7",
+                                  "threshold_0.5", "threshold_0.3"])
 def test_nms_kernel_matches_plain_cases(cuda, name):
     """N1 on tests/torch_nms_cases.py's cases (the CPU test holds the
     plain version against JAX on the same ones)."""
@@ -1024,6 +1025,103 @@ def test_nms_kernel_matches_plain_at_path_shapes(cuda, path, thres):
 
 
 @pytest.mark.cuda
+def test_nms_kernel_nan_coordinates(cuda):
+    """A NaN coordinate makes every IOU of its box NaN, which the plain
+    version's `union > 0` turns into 0: never suppressed, never
+    suppressing (the kernel's zero-intersection branch)."""
+    from torch_nms_cases import path_case
+    boxes, valid = path_case((4, 300), seed=5)
+    rng = np.random.RandomState(5)
+    nan = rng.rand(4, 300, 4) < 0.05
+    boxes[nan] = np.nan
+    keep = n1_check(cuda, boxes, valid, 0.5)
+    assert keep[torch.from_numpy(nan.any(-1) & valid)].all()
+
+
+def nms_regime(cuda, shape):
+    """N1's launch for ``shape``; its regime against the card's SMs: a
+    cluster of 2-8 CTAs a group up to half the SMs' count of groups, one
+    CTA a group above (csrc/nms.cu nms_plan)."""
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    groups = int(np.prod(shape[:-1]))
+    plan = N.greedy_keep_plan(groups, shape[-1], cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if 2 * groups > sms:
+        assert plan["cluster"] == 1 and plan["ctas"] == groups
+    else:
+        assert 2 <= plan["cluster"] <= 8
+        assert plan["ctas"] == groups * plan["cluster"] <= sms
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 2000), (8, 90, 200)],
+                         ids=["cluster", "cta_a_group"])
+def test_nms_kernel_regimes(cuda, shape):
+    """Both launch regimes, bit for bit: a cluster of CTAs a group where
+    the groups are few (the training step's proposals), one CTA a group
+    where they are many (EfficientDet's classes)."""
+    from torch_nms_cases import path_case
+    plan = nms_regime(cuda, shape)
+    assert (plan["cluster"] > 1) == (shape == (2, 5, 2000))
+    boxes, valid = path_case(shape, seed=9)
+    for thres in (0.7, 0.5):
+        keep = n1_check(cuda, boxes, valid, thres)
+        assert 0 < keep.sum() < valid.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("more", [0, 1])
+def test_nms_kernel_regime_edge(cuda, more):
+    """Groups at half the SM count (a cluster each) and one more (a CTA
+    each)."""
+    from torch_nms_cases import path_case
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shape = (sms // 2 + more, 300)
+    assert (nms_regime(cuda, shape)["cluster"] > 1) == (more == 0)
+    n1_check(cuda, *path_case(shape, seed=3), 0.5)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_largest_group(cuda):
+    """N = 8192, the most one CTA's shared memory holds: bit for bit the
+    plain version on the card (the CPU's would take minutes)."""
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    from torch_nms_cases import path_case
+    boxes, valid = path_case((1, N.MAX_BOXES), seed=4)
+    b, v = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    assert torch.equal(N.greedy_keep_cuda(b, v, 0.7),
+                       N.greedy_keep_plain(b, v, 0.7))
+
+
+@pytest.mark.cuda
+def test_nms_kernel_repeats_and_replays(cuda):
+    """The same launch twice gives equal masks, and so does its capture
+    in a CUDAGraph replayed on new inputs copied into the same tensors."""
+    from object_detection_tracking_tpu_torch.ops import nms as N
+    from torch_nms_cases import path_case
+    shape = (8, 5, 1000)
+    cases = [[torch.from_numpy(x).to(cuda)
+              for x in path_case(shape, seed=s)] for s in (1, 2)]
+    b, v = (x.clone() for x in cases[0])
+    first = N.greedy_keep_cuda(b, v, 0.7)
+    assert torch.equal(first, N.greedy_keep_cuda(b, v, 0.7))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = N.greedy_keep_cuda.launches
+    with torch.cuda.graph(graph):
+        out = N.greedy_keep_cuda(b, v, 0.7)
+    assert N.greedy_keep_cuda.launches == before + 1
+    for boxes, valid in cases + cases[:1]:
+        b.copy_(boxes)
+        v.copy_(valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, N.greedy_keep_plain(boxes, valid, 0.7))
+    assert not torch.equal(N.greedy_keep_plain(*cases[1], 0.7), first)
+
+
+@pytest.mark.cuda
 def test_nms_kernel_rejects_bad_arguments(cuda):
     from object_detection_tracking_tpu_torch.ops import nms as N
     b = torch.zeros(2, 10, 4, device=cuda)
@@ -1035,6 +1133,23 @@ def test_nms_kernel_rejects_bad_arguments(cuda):
     with pytest.raises(ValueError):
         N.greedy_keep_cuda(b[:, :9], v, 0.5)
     assert N.greedy_keep_cuda(b[:, :0], v[:, :0], 0.5).shape == (2, 0)
+    # more boxes a group than one CTA's shared memory holds
+    n = N.MAX_BOXES + 1
+    with pytest.raises(ValueError):
+        N.greedy_keep_cuda(torch.zeros(1, n, 4, device=cuda),
+                           torch.ones(1, n, dtype=torch.bool, device=cuda),
+                           0.5)
+    with pytest.raises(RuntimeError):
+        N.greedy_keep_plan(1, n, cuda)
+    # a box view off 16 bytes is copied, not read misaligned
+    flat = torch.rand(2 * 10 * 4 + 1, device=cuda) * 100
+    off = flat[1:].view(2, 10, 4)
+    off = torch.cat([off[..., :2], off[..., :2] + off[..., 2:]], -1)
+    shifted = torch.empty(2 * 10 * 4 + 1, device=cuda)[1:].view(2, 10, 4)
+    shifted.copy_(off)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(N.greedy_keep_cuda(shifted, v, 0.3),
+                       N.greedy_keep_plain(shifted, v, 0.3))
 
 
 def sync_free_model(cfg, cuda, h, w, model_name=None):

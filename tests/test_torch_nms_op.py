@@ -3,11 +3,14 @@
 runs the plain Jacobi fixpoint (kernel N1's spec), against the JAX
 package's ``nms`` and ``_greedy_keep`` on the cases greedy NMS most easily
 gets wrong: tied scores and repeated boxes, all boxes overlapping, groups
-with no valid box, N not a multiple of 64 (N1's word size), and IOUs on the
-threshold's float32 value and its neighbours (the comparison is strict and
-in float32). Indices, validity and keep masks must be equal. Then
-torch.export holds the op as one node and no host sync. Kernel N1 is held
-against this plain version, bit for bit, on the card
+with no valid box, N on, just over and off a multiple of 64 (N1's word
+size) and N = 1, boxes that never overlap, zero-area and repeated zero-area
+boxes (union 0), a negative threshold (0 > thres: every pair suppresses),
+and IOUs on the threshold's float32 value and its neighbours (the
+comparison is strict and in float32). Indices, validity and keep masks
+must be equal. Then torch.export holds the op as one node and no host
+sync. Kernel N1 is held against this plain version, bit for bit, on the
+card
 (tests/test_torch_kernels_cuda.py)."""
 
 import jax
@@ -44,6 +47,15 @@ def test_nms_op_matches_jax(name):
                                                   jnp.asarray(vs[g]), thres)))
     if name == "all_invalid":
         assert not got_v[0].any() and got_v[2].sum() == 1
+    if name == "disjoint":
+        assert torch.equal(keep, torch.from_numpy(vs))   # nothing overlaps
+    if name == "degenerate":
+        # a zero-area box's IOU is 0 with every box: never suppressed
+        flat = (bs[..., 2] == bs[..., 0]) | (bs[..., 3] == bs[..., 1])
+        assert flat.sum() > 100 and keep.numpy()[flat & vs].all()
+    if name == "negative_threshold":
+        assert keep.sum(-1).tolist() == [1, 1, 1]        # 0 > thres
+        assert keep.numpy()[np.arange(3), vs.argmax(-1)].all()
     if name.startswith("threshold"):
         # IOU just under and on the threshold keeps both; just over drops
         # the second (the comparison is strict, in float32)

@@ -61,7 +61,35 @@ def make_case(name):
         v[2] = False
         v[2, 63] = True                    # only the last one valid
         return b, s, v, 0.5, 20
-    if name.startswith("n"):              # N off the 64-box word
+    if name == "disjoint":
+        # a grid of boxes that never overlap (some share an edge, where the
+        # intersection's width is 0): every valid box is kept
+        col, row = np.meshgrid(np.arange(12), np.arange(11))
+        xy = np.stack([col.ravel(), row.ravel()], -1)[:130] * 20.0
+        wh = rng.uniform(5, 20, (2, 130, 2))
+        wh[:, ::7] = 20.0                  # edge to edge with the next cell
+        xy = np.broadcast_to(xy, wh.shape)
+        b = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+        s = rng.rand(2, 130).astype(np.float32)
+        return b, s, rng.rand(2, 130) > 0.1, 0.3, 130
+    if name == "degenerate":
+        # zero-area boxes (points, vertical and horizontal segments),
+        # repeated ones (their union is 0), and boxes around them
+        b = _random(rng, 3, 100, spread=60.0, size=20.0)
+        b[:, ::4, 2] = b[:, ::4, 0]        # zero width
+        b[:, 1::4, 3] = b[:, 1::4, 1]      # zero height
+        b[:, 2::8, 2:] = b[:, 2::8, :2]    # points
+        b[:, 50:60] = b[:, 40:50]          # repeated, zero-area among them
+        s = rng.rand(3, 100).astype(np.float32)
+        return b, s, rng.rand(3, 100) > 0.1, 0.0, 100
+    if name == "negative_threshold":
+        # 0 > thres: every pair suppresses, even disjoint boxes, so each
+        # group keeps its best valid box alone
+        b = _random(rng, 3, 80, spread=400.0, size=30.0)
+        s = rng.rand(3, 80).astype(np.float32)
+        v = rng.rand(3, 80) > 0.3
+        return b, s, v, -0.25, 10
+    if name.startswith("n"):              # N off or on the 64-box word
         n = int(name[1:])
         b = _random(rng, 4, n, spread=120.0)
         s = rng.rand(4, n).astype(np.float32)
@@ -74,8 +102,10 @@ def make_case(name):
     raise KeyError(name)
 
 
-CASES = ["ties", "all_overlapping", "all_invalid", "n37", "n65", "n130",
-         "n200", "threshold_0.7", "threshold_0.5", "threshold_0.3"]
+CASES = ["ties", "all_overlapping", "all_invalid", "n1", "n37", "n64",
+         "n65", "n129", "n130", "n200", "disjoint", "degenerate",
+         "negative_threshold", "threshold_0.7", "threshold_0.5",
+         "threshold_0.3"]
 
 
 # the paths' own NMS shapes [groups..., N]: the proposals at test and in
